@@ -1,0 +1,15 @@
+"""nndetection-tpu on PyTorch and CUDA: the port of :mod:`nndetection_tpu`.
+
+The module tree mirrors the JAX package (``core/boxes``, ``models``, ``ops``,
+``inference``, ``data``) so that every module has a counterpart of the same
+name there. The JAX package is the reference this port is tested against.
+
+Plain tensor code is PyTorch. Every kernel the JAX package wrote in Pallas for
+the TPU is a hand-written Hopper kernel here (``ops/``), CUDA C++ under
+``csrc/`` or Triton, each beside a plain PyTorch version of the same function
+that runs on CPU tensors.
+
+This package imports ``torch`` and never ``jax``.
+"""
+
+__version__ = "0.1.0"

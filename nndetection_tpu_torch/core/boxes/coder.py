@@ -1,0 +1,57 @@
+"""Box decoding from anchors (counterpart of
+:mod:`nndetection_tpu.core.boxes.coder`; ``encode`` comes with the train
+slice).
+
+Targets are ``(dx, dy, dw, dh, (dz, dd))``: normalized center offsets and log
+size ratios, with a clip on the log-size terms before ``exp``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from nndetection_tpu_torch.core.boxes.ops import box_corners, boxes_from_corners
+
+
+class BoxCoder:
+    def __init__(
+        self,
+        weights: Optional[Sequence[float]] = None,
+        bbox_xform_clip: float = math.log(1000.0 / 16),
+        dim: int = 3,
+    ):
+        """
+        Args:
+            weights: per-target weights ``(wx, wy, ww, wh, (wz, wd))``;
+                defaults to all ones.
+            bbox_xform_clip: max value for log-size targets before exp.
+            dim: number of spatial dims (2 or 3).
+        """
+        self.dim = dim
+        if weights is None:
+            weights = (1.0,) * (2 * dim)
+        assert len(weights) == 2 * dim
+        self.weights = tuple(float(w) for w in weights)
+        self.bbox_xform_clip = float(bbox_xform_clip)
+
+    def decode(self, rel_codes: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+        """Decode deltas relative to ``boxes`` (anchors) into corner boxes.
+
+        Shapes ``[..., N, 2*dim] -> [..., N, 2*dim]``, float32.
+        """
+        codes = rel_codes.float()
+        bmin, bmax = box_corners(boxes.float())
+        sizes = bmax - bmin
+        ctrs = bmin + 0.5 * sizes
+        if self.dim == 2:
+            ctr_cols, size_cols = [0, 1], [2, 3]
+        else:
+            ctr_cols, size_cols = [0, 1, 4], [2, 3, 5]
+        w = torch.tensor(self.weights, dtype=torch.float32, device=codes.device)
+        d_ctr = codes[..., ctr_cols] / w[: self.dim]
+        d_size = (codes[..., size_cols] / w[self.dim :]).clamp(max=self.bbox_xform_clip)
+        pred_ctr = d_ctr * sizes + ctrs
+        pred_size = torch.exp(d_size) * sizes
+        return boxes_from_corners(pred_ctr - 0.5 * pred_size, pred_ctr + 0.5 * pred_size)

@@ -1,0 +1,108 @@
+"""Weighted box clustering on the host (copy of the NumPy half of
+:mod:`nndetection_tpu.core.boxes.wbc`).
+
+Greedy clustering from the highest-scoring box: each cluster becomes one
+score-weighted average box, with a score dampened by the number of *missing*
+expected predictions.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+from nndetection_tpu_torch.core.boxes.ops_np import box_area_np, box_iou_np
+
+
+def wbc_np(
+    boxes: np.ndarray,
+    scores: np.ndarray,
+    weights: np.ndarray,
+    n_exp_preds: np.ndarray,
+    iou_thresh: float,
+    score_thresh: float = 0.0,
+    use_area: bool = False,
+    missing_weight: float = 1.0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Single-class weighted box clustering.
+
+    Args:
+        boxes: ``[N, 2*dim]``
+        scores: ``[N]``
+        weights: per-box weights (tile-border down-weighting etc.) ``[N]``
+        n_exp_preds: expected number of predictions per box ``[N]``
+        iou_thresh: boxes with IoU > thresh w.r.t. the cluster seed join it
+        score_thresh: clusters with consolidated score <= thresh are dropped
+        use_area: multiply weights by box area
+        missing_weight: dampening weight for missing predictions
+
+    Returns:
+        ``(boxes [K, 2*dim], scores [K])`` in the order the clusters formed.
+    """
+    if len(boxes) == 0:
+        return np.zeros((0, boxes.shape[-1] if boxes.ndim == 2 else 6)), np.zeros((0,))
+    boxes = boxes.astype(np.float64)
+    scores = scores.astype(np.float64)
+    w = weights.astype(np.float64)
+    if use_area:
+        w = w * box_area_np(boxes)
+    ious = box_iou_np(boxes, boxes)
+    idx_pool = np.argsort(-scores, kind="stable")
+    out_boxes, out_scores = [], []
+    while idx_pool.size > 0:
+        seed = idx_pool[0]
+        m = ious[seed][idx_pool] > iou_thresh
+        cluster = idx_pool[m]
+        n_found = len(cluster)
+        n_expected = float(np.mean(n_exp_preds[cluster]))
+        msw = ious[seed][cluster] * w[cluster]
+        ms = msw * scores[cluster]
+        n_missing = max(0.0, n_expected - n_found)
+        denom = msw.sum() + n_missing * msw.mean() * missing_weight
+        new_score = ms.sum() / denom
+        new_box = (boxes[cluster] * ms[:, None]).sum(0) / ms.sum()
+        if new_score > score_thresh:
+            out_boxes.append(new_box)
+            out_scores.append(new_score)
+        idx_pool = idx_pool[~m]
+    if out_boxes:
+        return np.stack(out_boxes, 0), np.asarray(out_scores)
+    return np.zeros((0, boxes.shape[-1])), np.zeros((0,))
+
+
+def batched_wbc_np(
+    boxes: np.ndarray,
+    scores: np.ndarray,
+    labels: np.ndarray,
+    weights: np.ndarray,
+    n_exp_preds: np.ndarray,
+    iou_thresh: float,
+    score_thresh: float = 0.0,
+    use_area: bool = False,
+    missing_weight: float = 1.0,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-class :func:`wbc_np`; returns ``(boxes, scores, labels)``."""
+    outs_b, outs_s, outs_l = [], [], []
+    for c in np.unique(labels):
+        m = labels == c
+        b, s = wbc_np(
+            boxes[m],
+            scores[m],
+            weights[m],
+            n_exp_preds[m],
+            iou_thresh=iou_thresh,
+            score_thresh=score_thresh,
+            use_area=use_area,
+            missing_weight=missing_weight,
+        )
+        outs_b.append(b)
+        outs_s.append(s)
+        outs_l.append(np.full(len(s), c))
+    if outs_b:
+        return (
+            np.concatenate(outs_b, 0),
+            np.concatenate(outs_s, 0),
+            np.concatenate(outs_l, 0),
+        )
+    d = boxes.shape[-1] if boxes.ndim == 2 else 6
+    return np.zeros((0, d)), np.zeros((0,)), np.zeros((0,))

@@ -1,0 +1,223 @@
+"""Conv/norm/act building blocks (counterpart of
+:mod:`nndetection_tpu.models.conv`), 3D.
+
+Activations are ``[B, C, D, H, W]`` tensors in ``torch.channels_last_3d``
+memory, so that the channel axis is innermost as in the JAX package's NDHWC
+layout and the instance-norm kernels read ``[B, S, C]`` maps without a copy.
+Convolutions are ``F.conv3d``/``F.conv_transpose3d`` (the JAX package leaves
+every default conv to XLA); the instance norm always runs through the kernels
+of :mod:`nndetection_tpu_torch.ops.instance_norm`.
+
+Parameters are float32 and cast to the activation type at use, as flax does
+with ``param_dtype=float32``. Submodules carry the flax scope names
+(``Conv_0``, ``ConvTranspose_0``, ``InstanceNorm_0``, ``GroupNorm_0``) so that
+a flax parameter tree maps onto the ``state_dict`` by renaming leaves
+(:mod:`nndetection_tpu_torch.bridge`).
+"""
+from __future__ import annotations
+
+import math
+import os
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from nndetection_tpu_torch.ops.instance_norm import instance_norm
+
+Kernel = Union[int, Sequence[int]]
+
+CHANNELS_LAST = torch.channels_last_3d
+
+
+def _to_tuple(k: Kernel, dim: int = 3) -> Tuple[int, ...]:
+    if isinstance(k, int):
+        return (k,) * dim
+    return tuple(int(v) for v in k)
+
+
+def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """(low, high) padding of XLA's ``SAME`` along one axis: the output has
+    ``ceil(size / stride)`` positions and the odd pad goes to the high side
+    (k=3, s=2 on an even size pads (0, 1), where torch's ``padding=1`` would
+    pad (1, 1))."""
+    total = max((math.ceil(size / stride) - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def _init_kernel(w: torch.Tensor, init: str, fan_in: int, generator) -> None:
+    """flax's initializers: ``he_normal``/``lecun_normal`` are truncated
+    normals (at 2 std) with variance 2/fan_in resp. 1/fan_in, corrected for
+    the truncation; ``normal_0.01`` is a plain normal."""
+    if init == "normal_0.01":
+        nn.init.normal_(w, 0.0, 0.01, generator=generator)
+        return
+    scale = {"he_normal": 2.0, "lecun_normal": 1.0}[init]
+    std = math.sqrt(scale / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+class Conv(nn.Module):
+    """``nn.Conv(padding="SAME")`` of flax: weight ``[Co, Ci, *k]``."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: Kernel,
+        strides: Kernel = 1,
+        use_bias: bool = True,
+        init: str = "he_normal",
+        bias_value: float = 0.0,
+    ):
+        super().__init__()
+        self.kernel_size = _to_tuple(kernel_size)
+        self.strides = _to_tuple(strides)
+        self.init = init
+        self.bias_value = bias_value
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, *self.kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if use_bias else None
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        _init_kernel(self.weight.data, self.init, self.weight[0].numel(), generator)
+        if self.bias is not None:
+            self.bias.data.fill_(self.bias_value)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pads = [same_padding(n, k, s) for n, k, s in
+                zip(x.shape[2:], self.kernel_size, self.strides)]
+        if all(lo == hi for lo, hi in pads):
+            padding = tuple(lo for lo, _ in pads)
+        else:
+            # asymmetric SAME: pad explicitly (F.pad lists the last axis first)
+            x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
+            padding = 0
+        bias = self.bias.to(x.dtype) if self.bias is not None else None
+        y = F.conv3d(x, self.weight.to(x.dtype), bias, self.strides, padding)
+        return y.contiguous(memory_format=CHANNELS_LAST)
+
+
+class ConvTranspose(nn.Module):
+    """``nn.ConvTranspose(padding="SAME")`` of flax for kernel == stride (the
+    decoder's up-sampling): weight ``[Ci, Co, *k]``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: Kernel,
+                 strides: Kernel, use_bias: bool = True):
+        super().__init__()
+        self.kernel_size = _to_tuple(kernel_size)
+        self.strides = _to_tuple(strides)
+        if self.kernel_size != self.strides:
+            raise NotImplementedError(
+                f"transposed conv with kernel {self.kernel_size} != stride {self.strides}")
+        self.weight = nn.Parameter(torch.empty(in_channels, out_channels, *self.kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if use_bias else None
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        fan_in = self.weight.shape[0] * math.prod(self.kernel_size)
+        _init_kernel(self.weight.data, "he_normal", fan_in, generator)
+        if self.bias is not None:
+            self.bias.data.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = self.bias.to(x.dtype) if self.bias is not None else None
+        y = F.conv_transpose3d(x, self.weight.to(x.dtype), bias, self.strides)
+        return y.contiguous(memory_format=CHANNELS_LAST)
+
+
+def in_plane_stride(ndim: int) -> Optional[int]:
+    """Depth-plane stride of the instance-norm statistics, by the JAX
+    package's rule (``models/conv.py:332-340``): ``NNDET_IN_STATS`` set to
+    ``plane_sub[:k]`` samples every k-th plane (k = 4 when omitted); any other
+    value gives exact statistics; unset, 5-D maps use ``plane_sub:8``."""
+    impl = os.environ.get("NNDET_IN_STATS", "plane_sub:8" if ndim == 5 else "two_pass")
+    if impl.startswith("plane_sub"):
+        return int(impl.split(":")[1]) if ":" in impl else 4
+    return None
+
+
+class InstanceNorm(nn.Module):
+    """Instance norm over the spatial axes, float32 statistics, through the
+    instance-norm kernels. Parameters ``weight`` (flax ``scale``) and
+    ``bias``."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        self.weight.data.fill_(1.0)
+        self.bias.data.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # [B, C, D, H, W] in channels_last_3d memory is a contiguous
+        # [B, D, H, W, C] map once the channel axis is moved last
+        y = instance_norm(
+            x.permute(0, 2, 3, 4, 1), self.weight, self.bias, self.eps,
+            plane_stride=in_plane_stride(x.dim()),
+        )
+        return y.permute(0, 4, 1, 2, 3)
+
+
+class GroupNorm(nn.Module):
+    """Group norm with ``channels // channels_per_group`` contiguous groups.
+    The parameters sit one scope deeper, as flax nests its ``nn.GroupNorm``
+    (``GroupNorm_0/GroupNorm_0/{scale,bias}``)."""
+
+    def __init__(self, channels: int, channels_per_group: int = 16, eps: float = 1e-5):
+        super().__init__()
+        self.GroupNorm_0 = nn.GroupNorm(max(1, channels // channels_per_group), channels, eps)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        self.GroupNorm_0.reset_parameters()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gn = self.GroupNorm_0
+        y = F.group_norm(x, gn.num_groups, gn.weight.to(x.dtype), gn.bias.to(x.dtype), gn.eps)
+        return y.contiguous(memory_format=CHANNELS_LAST)
+
+
+class ConvNormAct(nn.Module):
+    """conv -> (norm) -> (relu); bias only when no norm follows."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: Kernel = 3,
+        strides: Kernel = 1,
+        norm: Optional[str] = "instance",
+        act: Optional[str] = "relu",
+        norm_channels_per_group: int = 16,
+        transposed: bool = False,
+    ):
+        super().__init__()
+        use_bias = norm is None
+        if transposed:
+            self.ConvTranspose_0 = ConvTranspose(
+                in_channels, out_channels, kernel_size, strides, use_bias)
+        else:
+            self.Conv_0 = Conv(in_channels, out_channels, kernel_size, strides, use_bias)
+        if norm == "instance":
+            self.InstanceNorm_0 = InstanceNorm(out_channels)
+        elif norm == "group":
+            self.GroupNorm_0 = GroupNorm(out_channels, norm_channels_per_group)
+        elif norm is not None:
+            raise ValueError(f"unknown norm {norm}")
+        if act not in ("relu", None):
+            raise ValueError(f"unknown act {act}")
+        self.transposed, self.norm, self.act = transposed, norm, act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.ConvTranspose_0(x) if self.transposed else self.Conv_0(x)
+        if self.norm == "instance":
+            x = self.InstanceNorm_0(x)
+        elif self.norm == "group":
+            x = self.GroupNorm_0(x)
+        if self.act == "relu":
+            x = torch.relu_(x)
+        return x

@@ -1,0 +1,73 @@
+"""The PyTorch port imports without JAX or flax, and no file of it imports
+them."""
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import nndetection_tpu_torch
+
+PKG = Path(nndetection_tpu_torch.__file__).resolve().parent
+
+SLICE_MODULES = [
+    "nndetection_tpu_torch",
+    "nndetection_tpu_torch.bridge",
+    "nndetection_tpu_torch.core",
+    "nndetection_tpu_torch.core.boxes",
+    "nndetection_tpu_torch.core.boxes.anchors",
+    "nndetection_tpu_torch.core.boxes.coder",
+    "nndetection_tpu_torch.core.boxes.nms",
+    "nndetection_tpu_torch.core.boxes.ops",
+    "nndetection_tpu_torch.core.boxes.ops_np",
+    "nndetection_tpu_torch.core.boxes.wbc",
+    "nndetection_tpu_torch.data",
+    "nndetection_tpu_torch.data.patching",
+    "nndetection_tpu_torch.inference",
+    "nndetection_tpu_torch.inference.ensembler",
+    "nndetection_tpu_torch.inference.predictor",
+    "nndetection_tpu_torch.inference.restore",
+    "nndetection_tpu_torch.inference.tta",
+    "nndetection_tpu_torch.models",
+    "nndetection_tpu_torch.models.blocks",
+    "nndetection_tpu_torch.models.conv",
+    "nndetection_tpu_torch.models.decoder",
+    "nndetection_tpu_torch.models.encoder",
+    "nndetection_tpu_torch.models.heads",
+    "nndetection_tpu_torch.models.retina_unet",
+    "nndetection_tpu_torch.ops",
+    "nndetection_tpu_torch.ops._build",
+    "nndetection_tpu_torch.ops.instance_norm",
+    "nndetection_tpu_torch.ops.nms",
+]
+
+
+def test_every_module_is_listed():
+    found = set()
+    for p in PKG.rglob("*.py"):
+        parts = p.relative_to(PKG).with_suffix("").parts
+        found.add(".".join(("nndetection_tpu_torch",) + parts).removesuffix(".__init__"))
+    assert found == set(SLICE_MODULES)
+
+
+def test_imports_with_jax_and_flax_blocked():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jax.numpy', 'flax', 'flax.linen', 'triton'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for m in {SLICE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'flax')) "
+        "for k, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=PKG.parent, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_no_source_imports_jax():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|jaxlib|nndetection_tpu)\b", re.M)
+    offenders = [str(p) for p in PKG.rglob("*.py") if pattern.search(p.read_text())]
+    assert offenders == []
