@@ -8,24 +8,35 @@ Phases, each printing its findings:
    CUDA, never falls back to the CPU;
 2. build: compiles the CUDA kernels from ``nndetection_tpu_torch/csrc`` into
    the git-ignored ``nndetection_tpu_torch/_build`` and loads them;
-3. kernels: every kernel of the serving path against its plain PyTorch
-   version on the card, at the shapes of that path (instance-norm statistics
-   and apply at the LUNA plan's stage shapes, bf16 and f32, exact and
-   plane-subsampled; NMS at 16 x 1000 and 2 x 10000 boxes), with median
+3. kernels: every kernel of the serving and train paths against its plain
+   PyTorch version on the card, at the shapes of those paths (instance-norm
+   statistics, apply, gradient sums and input gradient at the LUNA plan's
+   stage shapes, bf16 and f32, exact and plane-subsampled, and at the train
+   batch's stage 0; NMS at 16 x 1000 and 2 x 10000 boxes), with median
    times from CUDA events;
 4. reference: a tiny float32 model on the card against the same model on
-   the CPU (forward, post-processing, whole-case prediction);
+   the CPU, TF32 off (forward, post-processing, whole-case prediction, and
+   one ``Trainer.train_step`` with the same sampler draws on both: losses,
+   every gradient, every parameter after the update);
 5. forward: the full-width LUNA-plan RetinaUNet (patch 96x128x128, 6
    stages, 32..320 channels, 27 anchors/position) in bf16 from a seeded
    initialization; every output finite;
 6. serve: ``Predictor.predict_case`` on a 140x320x320 case without TTA and a
    96x256x256 case with 8-flip TTA, each twice (first call, then warm); the
-   kernels' launch counts are reset just before and must all have risen.
+   kernels' launch counts are reset just before and must all have risen;
+7. train: ``Trainer.train_epoch`` on the LUNA plan at batch 8 (bf16, remat
+   as the config sets it), 2 warm-up steps then 5 timed ones, on a seeded
+   batch made as ``bench.py`` makes it; the launch counts are reset just
+   before and all four instance-norm kernels must have run; every loss
+   finite, positives matched, parameters changed.
 
-Then one JSON line with each kernel's route, source, launches in phase 6,
-max error and times, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
-non-zero and no result line is printed.
+Then one JSON line with each kernel's route, source, launches in the phase
+that drives it (train for the instance norm, serve for NMS), max error and
+times, the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+Any failure raises: the exit code is non-zero and no result line is printed.
+
+``--profile=DIR`` adds a ``torch.profiler`` trace of one train step (kernel
+time by name; the table into ``DIR/train_profile.txt``).
 """
 from __future__ import annotations
 
@@ -46,6 +57,8 @@ LUNA_STAGES = [
     (2, 3, 4, 4, 320),
 ]
 NMS_SHAPES = [(16, 1000, 100), (2, 10000, 100)]
+# the train batch's stage 0: where the backward kernels' time is reported
+TRAIN_STAGE0 = (8, 96, 128, 128, 32)
 # stated tolerances of kernel against plain version on the card
 TOL = {
     # statistics: same float32 inputs, other summation order
@@ -56,12 +69,24 @@ TOL = {
     # apply, bfloat16: that ulp can cross a bfloat16 rounding boundary,
     # one bfloat16 ulp (2^-8 relative)
     "in_apply_bf16": dict(rtol=1e-2, atol=1e-2),
+    # gradient sums: float32 sums of up to 1.5M O(1) terms per (b, c) in
+    # another order (per-split partials, then their combine)
+    "in_grad_stats": dict(rtol=1e-4, atol=1e-3),
+    # input gradient: identical sums in; the kernel divides s1 and s2 by |P|
+    # before the multiply-add, the plain version after: an ulp or two in
+    # float32, one bfloat16 ulp in bfloat16
+    "in_grad_input_f32": dict(rtol=1e-5, atol=1e-5),
+    "in_grad_input_bf16": dict(rtol=1e-2, atol=1e-2),
 }
 KERNELS = {
     "in_stats": dict(route="triton", source="nndetection_tpu_torch/ops/instance_norm.py",
                      replaces="nndetection_tpu/ops/pallas_norm.py:72"),
     "in_apply": dict(route="triton", source="nndetection_tpu_torch/ops/instance_norm.py",
                      replaces="nndetection_tpu/ops/pallas_norm.py:105"),
+    "in_grad_stats": dict(route="triton", source="nndetection_tpu_torch/ops/instance_norm.py",
+                          replaces="nndetection_tpu/ops/pallas_norm.py:115"),
+    "in_grad_input": dict(route="triton", source="nndetection_tpu_torch/ops/instance_norm.py",
+                          replaces="nndetection_tpu/ops/pallas_norm.py:135"),
     "nms_topk": dict(route="cuda", source="nndetection_tpu_torch/csrc/nms_topk.cu",
                      replaces="nndetection_tpu/ops/pallas_ops.py:132"),
 }
@@ -150,24 +175,64 @@ def phase_build() -> None:
             log(f"[build] {line.strip()}")
 
 
-def phase_kernels(device, stages=LUNA_STAGES, nms_shapes=NMS_SHAPES, reps=20):
+def _grad_kernels(x4, dy4, gamma, start, step, reps):
+    """in_grad_stats and in_grad_input against their plain versions on one
+    map: (max errors, times)."""
+    from nndetection_tpu_torch.ops.instance_norm import (
+        in_grad_input, in_grad_input_plain, in_grad_stats, in_grad_stats_plain, in_stats_plain)
+
+    name = f"{list(x4.shape)} {str(x4.dtype)[6:]} planes {start}::{step}"
+    mean, var = in_stats_plain(x4, start, step)
+    inv = torch.rsqrt(var + 1e-5)
+    s1, s2 = in_grad_stats(x4, dy4, mean, inv)
+    p1, p2 = in_grad_stats_plain(x4, dy4, mean, inv)
+    e_stats = max(check_close(f"in_grad_stats s1 {name}", s1, p1, **TOL["in_grad_stats"]),
+                  check_close(f"in_grad_stats s2 {name}", s2, p2, **TOL["in_grad_stats"]))
+    dx = in_grad_input(x4, dy4, mean, inv, gamma, p1, p2, start, step)
+    pdx = in_grad_input_plain(x4, dy4, mean, inv, gamma, p1, p2, start, step)
+    tol = TOL["in_grad_input_f32" if x4.dtype == torch.float32 else "in_grad_input_bf16"]
+    e_input = check_close(f"in_grad_input {name}", dx, pdx, **tol)
+    times = {
+        "in_grad_stats": median_ms(lambda: in_grad_stats(x4, dy4, mean, inv), reps),
+        "in_grad_stats_plain": median_ms(lambda: in_grad_stats_plain(x4, dy4, mean, inv), reps),
+        "in_grad_input": median_ms(
+            lambda: in_grad_input(x4, dy4, mean, inv, gamma, p1, p2, start, step), reps),
+        "in_grad_input_plain": median_ms(
+            lambda: in_grad_input_plain(x4, dy4, mean, inv, gamma, p1, p2, start, step), reps),
+    }
+    log(f"[kernels] instance norm backward {name}: "
+        f"grad sums err {e_stats:.2e} {times['in_grad_stats']:.4f} ms (plain {times['in_grad_stats_plain']:.4f}) | "
+        f"input grad err {e_input:.2e} {times['in_grad_input']:.4f} ms (plain {times['in_grad_input_plain']:.4f})")
+    return {"in_grad_stats": e_stats, "in_grad_input": e_input}, times
+
+
+def phase_kernels(device, stages=LUNA_STAGES, nms_shapes=NMS_SHAPES, train_stage0=TRAIN_STAGE0,
+                  reps=20):
     """Each kernel against its plain version; returns per-kernel max error
     and the times at the main path's representative shape (stage 0, bf16,
-    the default plane_sub:8 schedule for IN; 16 x 1000 boxes for NMS)."""
+    the default plane_sub:8 schedule for IN, at batch 2 for the forward and
+    at the train batch for the backward; 16 x 1000 boxes for NMS)."""
     from nndetection_tpu_torch.ops.instance_norm import (
         in_apply, in_apply_plain, in_stats, in_stats_plain, plane_schedule)
     from nndetection_tpu_torch.ops.nms import nms_topk, nms_topk_plain
 
     summary = {k: {"max_abs_err": 0.0} for k in KERNELS}
+
+    def note_err(errs):
+        for k, e in errs.items():
+            summary[k]["max_abs_err"] = max(summary[k]["max_abs_err"], e)
+
     g = torch.Generator().manual_seed(0)
     t0 = time.perf_counter()
     for si, shape in enumerate(stages):
         b, d, h, w, c = shape
         base = torch.randn(shape, generator=g) * 2 + 1
+        base_dy = torch.randn(shape, generator=g)
         gamma = (torch.rand(c, generator=g) + 0.5).to(device)
         beta = torch.randn(c, generator=g).to(device)
         for dtype in (torch.bfloat16, torch.float32):
             x4 = base.to(device, dtype).view(b, d, h * w, c)
+            dy4 = base_dy.to(device, dtype).view(b, d, h * w, c)
             for stride in (None, 8):
                 start, step = plane_schedule(d, stride)
                 mean, var = in_stats(x4, start, step)
@@ -178,8 +243,7 @@ def phase_kernels(device, stages=LUNA_STAGES, nms_shapes=NMS_SHAPES, reps=20):
                 py = in_apply_plain(x4, pmean, pvar, gamma, beta)
                 tol = TOL["in_apply_f32" if dtype == torch.float32 else "in_apply_bf16"]
                 e_apply = check_close(f"in_apply {shape} {dtype}", y, py, **tol)
-                summary["in_stats"]["max_abs_err"] = max(summary["in_stats"]["max_abs_err"], e_stats)
-                summary["in_apply"]["max_abs_err"] = max(summary["in_apply"]["max_abs_err"], e_apply)
+                note_err({"in_stats": e_stats, "in_apply": e_apply})
                 times = {
                     "in_stats": median_ms(lambda: in_stats(x4, start, step), reps),
                     "in_stats_plain": median_ms(lambda: in_stats_plain(x4, start, step), reps),
@@ -193,6 +257,21 @@ def phase_kernels(device, stages=LUNA_STAGES, nms_shapes=NMS_SHAPES, reps=20):
                     for k in ("in_stats", "in_apply"):
                         summary[k].update(ms=times[k], plain_ms=times[k + "_plain"],
                                           shape=f"{list(shape)} bf16 planes {start}::{step}")
+                errs, _ = _grad_kernels(x4, dy4, gamma, start, step, reps)
+                note_err(errs)
+    # the backward's representative time: stage 0 of the train batch
+    gd = torch.Generator(device=device).manual_seed(1)
+    b, d, h, w, c = train_stage0
+    x4 = (torch.randn((b, d, h * w, c), generator=gd, device=device) * 2 + 1).to(torch.bfloat16)
+    dy4 = torch.randn((b, d, h * w, c), generator=gd, device=device).to(torch.bfloat16)
+    gamma = torch.rand(c, generator=gd, device=device) + 0.5
+    start, step = plane_schedule(d, 8)
+    errs, times = _grad_kernels(x4, dy4, gamma, start, step, reps)
+    note_err(errs)
+    for k in ("in_grad_stats", "in_grad_input"):
+        summary[k].update(ms=times[k], plain_ms=times[k + "_plain"],
+                          shape=f"{list(train_stage0)} bf16 planes {start}::{step}")
+    del x4, dy4
     log(f"[kernels] instance norm checks took {time.perf_counter() - t0:.1f} s (Triton compiles included)")
 
     rng = np.random.RandomState(0)
@@ -271,6 +350,95 @@ def phase_reference(device) -> None:
             check_close("case scores", torch.from_numpy(rg["pred_scores"][og]), torch.from_numpy(rc["pred_scores"][oc]), 0, 1e-3))
     log("[reference] tiny float32 model, card vs CPU (TF32 off), max abs err: "
         + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    reference_train_step(device, cfg, cpu_model.state_dict())
+
+
+def instance_batch(rng, batch, patch, max_inst=8):
+    """A seeded raw batch as ``bench.py:62-76`` makes it: one cube of
+    instance id 1 per image around a random centre, class 0, noise images."""
+    seg = np.zeros((batch, *patch), np.int32)
+    for b in range(batch):
+        c = [rng.randint(12, g - 12) for g in patch]
+        r = rng.randint(3, 8)
+        seg[b, c[0] - r:c[0] + r, c[1] - r:c[1] + r, c[2] - r:c[2] + r] = 1
+    table = np.full((batch, max_inst), -1, np.int32)
+    table[:, 0] = 0
+    images = rng.standard_normal((batch, *patch, 1)).astype(np.float32)
+    return images, seg, table
+
+
+def train_targets(device, batch, patch, seed=0):
+    """Training targets of :func:`instance_batch` through the port's
+    ``prepare_targets``, on ``device``."""
+    from nndetection_tpu_torch.data.gt_prep import prepare_targets
+
+    images, seg, table = instance_batch(np.random.RandomState(seed), batch, patch)
+    return prepare_targets(*(torch.from_numpy(a).to(device) for a in (images, seg, table)))
+
+
+def reference_train_step(device, cfg, params) -> None:
+    """One ``Trainer.train_epoch`` step of the tiny float32 model (hard-negative
+    head) on the card against the CPU, with the sampler's draws made once on
+    the CPU and replayed on the card: losses, the gradient of every
+    parameter, and every parameter after the update."""
+    from nndetection_tpu_torch.core.boxes import sampler
+    from nndetection_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    tcfg = TrainerConfig(batch_size=2, warm_iterations=0, max_epochs=1,
+                         num_train_batches_per_epoch=10, swa_epochs=0)
+    batch = {k: v.numpy() for k, v in train_targets("cpu", 2, cfg.patch_size, seed=4).items()}
+    draws = []
+    draw = sampler.draw_uniform
+
+    def record(generator, shape, dev):
+        u = draw(generator, shape, dev)
+        draws.append(u.clone())
+        return u
+
+    def keep_grads(state, grads):
+        # the clipped gradients, as the optimizer receives them (the
+        # multi-tensor SGD on the card may update them in place)
+        step = state.optimizer.step
+
+        def wrapped(*args, **kwargs):
+            grads.update({n: p.grad.detach().cpu().clone()
+                          for n, p in state.model.named_parameters()})
+            return step(*args, **kwargs)
+
+        state.optimizer.step = wrapped
+
+    runs = []
+    try:
+        for dev, fn in (("cpu", record), (device, lambda g, shape, d: draws.pop(0).to(d))):
+            sampler.draw_uniform = fn
+            trainer = Trainer(cfg, tcfg, dev)
+            state = trainer.init_state(params=params)
+            grads = {}
+            keep_grads(state, grads)
+            state, metrics = trainer.train_epoch(state, [batch], 0)
+            runs.append((metrics, grads, dict(state.model.named_parameters())))
+    finally:
+        sampler.draw_uniform = draw
+    (m_cpu, g_cpu, p_cpu), (m_dev, g_dev, p_dev) = runs
+    errs = {}
+    for k in ("cls", "reg", "seg_ce", "seg_dice", "num_pos", "num_neg"):
+        want = torch.tensor(m_cpu[f"train_{k}"])
+        errs[k] = check_close(f"reference train {k}", torch.tensor(m_dev[f"train_{k}"]), want,
+                              1e-4, 1e-5)
+    if m_cpu["train_num_pos"] <= 0:
+        raise AssertionError("reference train step: no positive anchor")
+    # float32 on both sides; cuDNN and the CPU sum the backward in other orders
+    g_err = p_err = 0.0
+    for name, p in p_dev.items():
+        want = g_cpu[name]
+        g_err = max(g_err, check_close(f"reference grad {name}", g_dev[name], want, 0,
+                                       1e-3 * float(want.abs().max())))
+        p_err = max(p_err, check_close(f"reference param {name}", p.detach().cpu(),
+                                       p_cpu[name].detach(), 1e-5, 1e-5))
+    log("[reference] tiny float32 train step, card vs CPU (same sampler draws, TF32 off), "
+        "max abs err: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f", gradients {g_err:.2e}, parameters after the update {p_err:.2e}; "
+        f"num_pos {m_cpu['train_num_pos']:.0f}, num_neg {m_cpu['train_num_neg']:.0f}")
 
 
 def phase_forward(device, patch=(96, 128, 128), batch=2) -> None:
@@ -331,14 +499,93 @@ def phase_serve(device, cases=(((140, 320, 320), False), ((96, 256, 256), True))
             f"{len(predictor.tta_flips)} flips, {predictor.tiles_per_call} tiles per call, "
             f"{len(boxes)} detections")
     launches = dict(LAUNCHES)
-    missing = [k for k in KERNELS if launches.get(k, 0) == 0]
+    missing = [k for k in ("in_stats", "in_apply", "nms_topk") if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"serve: kernels never launched on the main path: {missing}")
     log(f"[serve] kernel launches during serve: {launches}")
     return launches
 
 
+def phase_train(device, patch=(96, 128, 128), batch=8, warmup=2, steps=5,
+                profile_dir=None) -> dict:
+    """``Trainer.train_epoch`` on the LUNA plan: ``warmup`` steps, then
+    ``steps`` timed ones; the launch counts cover both."""
+    from nndetection_tpu_torch.ops import LAUNCHES
+    from nndetection_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = luna_cfg(patch)
+    trainer = Trainer(cfg, TrainerConfig(batch_size=batch, warm_iterations=10), device)
+    state = trainer.init_state(rng_seed=0)
+    before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    targets = train_targets(device, batch, patch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    state, m_warm = trainer.train_epoch(state, [targets] * warmup, 0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, m = trainer.train_epoch(state, [targets] * steps, 1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    missing = [k for k in ("in_stats", "in_apply", "in_grad_stats", "in_grad_input")
+               if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"train: kernels never launched on the main path: {missing}")
+    for metrics in (m_warm, m):
+        bad = [k for k, v in metrics.items() if k.startswith("train_") and not np.isfinite(v)]
+        if bad or metrics["train_nonfinite_steps"]:
+            raise AssertionError(f"train: non-finite losses {bad}")
+    if not m["train_num_pos"] > 0:
+        raise AssertionError("train: no positive anchor matched")
+    changed = sum(not torch.equal(p, before[n]) for n, p in state.model.named_parameters())
+    if changed == 0:
+        raise AssertionError("train: no parameter changed")
+    log(f"[train] LUNA plan patch {patch} batch {batch} bf16 remat={cfg.remat}: "
+        f"first {warmup} steps {t1 - t0:.2f} s; {steps} steps {seconds:.3f} s = "
+        f"{seconds / steps:.4f} s/step, {steps * batch / seconds:.2f} patches/s; "
+        f"peak device memory {peak:.2f} GiB; losses "
+        + ", ".join(f"{k} {m['train_' + k]:.4f}" for k in ("cls", "reg", "seg_ce", "seg_dice", "total"))
+        + f"; num_pos {m['train_num_pos']:.1f} num_neg {m['train_num_neg']:.1f} per step; "
+        f"{changed}/{len(before)} parameter tensors changed")
+    log(f"[train] kernel launches during train: {launches}")
+    if profile_dir is not None:
+        profile_train_step(trainer, state, targets, profile_dir)
+    return launches
+
+
+def profile_train_step(trainer, state, targets, out_dir) -> None:
+    """Device time by kernel over one train step (``torch.profiler``), the
+    table into ``out_dir/train_profile.txt``."""
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_epoch(state, [targets], 2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    # kernels only: an operator's row repeats the time of the kernels it launched
+    device_us = sum(e.self_device_time_total for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    table = events.table(sort_by="self_device_time_total", row_limit=40)
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "train_profile.txt").write_text(table)
+    log(f"[profile] one train step: wall {wall:.4f} s under the profiler, device time "
+        f"{device_us / 1e6:.4f} s ({100 * device_us / 1e6 / wall:.1f} % busy)")
+    for line in table.splitlines()[:20]:
+        log(f"[profile] {line}")
+
+
 def main() -> None:
+    profile_dir = next((a.split("=", 1)[1] for a in sys.argv[1:]
+                        if a.startswith("--profile=")), None)
     smi = phase_device()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -346,13 +593,14 @@ def main() -> None:
     summary = phase_kernels(device)
     phase_reference(device)
     phase_forward(device)
-    launches = phase_serve(device)
-    kernels = [
-        {"name": name, **KERNELS[name], "launches": launches[name],
-         "max_abs_err": summary[name]["max_abs_err"], "ms": summary[name]["ms"],
-         "plain_ms": summary[name]["plain_ms"], "shape": summary[name]["shape"]}
-        for name in KERNELS
-    ]
+    launches = {"serve": phase_serve(device), "train": phase_train(device, profile_dir=profile_dir)}
+    kernels = []
+    for name in KERNELS:
+        phase = "serve" if name == "nms_topk" else "train"
+        kernels.append({"name": name, **KERNELS[name], "launches": launches[phase][name],
+                        "phase": phase, "max_abs_err": summary[name]["max_abs_err"],
+                        "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"],
+                        "shape": summary[name]["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

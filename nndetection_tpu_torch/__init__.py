@@ -1,8 +1,9 @@
 """nndetection-tpu on PyTorch and CUDA: the port of :mod:`nndetection_tpu`.
 
 The module tree mirrors the JAX package (``core/boxes``, ``models``, ``ops``,
-``inference``, ``data``) so that every module has a counterpart of the same
-name there. The JAX package is the reference this port is tested against.
+``inference``, ``data``, ``train``, ``losses``) so that every module has a
+counterpart of the same name there. The JAX package is the reference this
+port is tested against.
 
 Plain tensor code is PyTorch. Every kernel the JAX package wrote in Pallas for
 the TPU is a hand-written Hopper kernel here (``ops/``), CUDA C++ under

@@ -1,6 +1,5 @@
-"""Box decoding from anchors (counterpart of
-:mod:`nndetection_tpu.core.boxes.coder`; ``encode`` comes with the train
-slice).
+"""Box encoding and decoding against anchors (counterpart of
+:mod:`nndetection_tpu.core.boxes.coder`).
 
 Targets are ``(dx, dy, dw, dh, (dz, dd))``: normalized center offsets and log
 size ratios, with a clip on the log-size terms before ``exp``.
@@ -12,7 +11,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from nndetection_tpu_torch.core.boxes.ops import box_corners, boxes_from_corners
+from nndetection_tpu_torch.core.boxes.ops import box_corners, boxes_from_corners, columns
 
 
 class BoxCoder:
@@ -36,6 +35,28 @@ class BoxCoder:
         self.weights = tuple(float(w) for w in weights)
         self.bbox_xform_clip = float(bbox_xform_clip)
 
+    def _columns(self):
+        # (center columns, size columns) of the (dx, dy, dw, dh, (dz, dd)) layout
+        return ([0, 1], [2, 3]) if self.dim == 2 else ([0, 1, 4], [2, 3, 5])
+
+    def encode(self, reference_boxes: torch.Tensor, proposals: torch.Tensor) -> torch.Tensor:
+        """Encode ``reference_boxes`` (e.g. matched GT) relative to
+        ``proposals`` (anchors): ``[..., N, 2*dim] -> [..., N, 2*dim]``,
+        float32."""
+        pmin, pmax = box_corners(proposals.float())
+        rmin, rmax = box_corners(reference_boxes.float())
+        ex_size = pmax - pmin
+        ex_ctr = pmin + 0.5 * ex_size
+        gt_size = rmax - rmin
+        gt_ctr = rmin + 0.5 * gt_size
+        w = torch.tensor(self.weights, dtype=torch.float32, device=pmin.device)
+        d_ctr = w[: self.dim] * (gt_ctr - ex_ctr) / ex_size
+        d_size = w[self.dim :] * torch.log(gt_size / ex_size)
+        ctr_cols, size_cols = self._columns()
+        parts = {c: d_ctr[..., i] for i, c in enumerate(ctr_cols)}
+        parts.update({c: d_size[..., i] for i, c in enumerate(size_cols)})
+        return torch.stack([parts[c] for c in range(2 * self.dim)], dim=-1)
+
     def decode(self, rel_codes: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
         """Decode deltas relative to ``boxes`` (anchors) into corner boxes.
 
@@ -45,13 +66,10 @@ class BoxCoder:
         bmin, bmax = box_corners(boxes.float())
         sizes = bmax - bmin
         ctrs = bmin + 0.5 * sizes
-        if self.dim == 2:
-            ctr_cols, size_cols = [0, 1], [2, 3]
-        else:
-            ctr_cols, size_cols = [0, 1, 4], [2, 3, 5]
+        ctr_cols, size_cols = self._columns()
         w = torch.tensor(self.weights, dtype=torch.float32, device=codes.device)
-        d_ctr = codes[..., ctr_cols] / w[: self.dim]
-        d_size = (codes[..., size_cols] / w[self.dim :]).clamp(max=self.bbox_xform_clip)
+        d_ctr = columns(codes, ctr_cols) / w[: self.dim]
+        d_size = (columns(codes, size_cols) / w[self.dim :]).clamp(max=self.bbox_xform_clip)
         pred_ctr = d_ctr * sizes + ctrs
         pred_size = torch.exp(d_size) * sizes
         return boxes_from_corners(pred_ctr - 0.5 * pred_size, pred_ctr + 0.5 * pred_size)

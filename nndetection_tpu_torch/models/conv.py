@@ -6,7 +6,8 @@ memory, so that the channel axis is innermost as in the JAX package's NDHWC
 layout and the instance-norm kernels read ``[B, S, C]`` maps without a copy.
 Convolutions are ``F.conv3d``/``F.conv_transpose3d`` (the JAX package leaves
 every default conv to XLA); the instance norm always runs through the kernels
-of :mod:`nndetection_tpu_torch.ops.instance_norm`.
+of :mod:`nndetection_tpu_torch.ops.instance_norm`, forward and backward, by
+way of its ``torch.autograd.Function``.
 
 Parameters are float32 and cast to the activation type at use, as flax does
 with ``param_dtype=float32``. Submodules carry the flax scope names
@@ -140,8 +141,8 @@ def in_plane_stride(ndim: int) -> Optional[int]:
 
 class InstanceNorm(nn.Module):
     """Instance norm over the spatial axes, float32 statistics, through the
-    instance-norm kernels. Parameters ``weight`` (flax ``scale``) and
-    ``bias``."""
+    instance-norm kernels and their ``torch.autograd.Function`` on every
+    device. Parameters ``weight`` (flax ``scale``) and ``bias``."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()

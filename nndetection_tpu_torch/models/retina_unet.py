@@ -1,10 +1,12 @@
 """Retina U-Net: encoder + U-FPN + RetinaNet heads + auxiliary segmentation
 head (counterpart of :mod:`nndetection_tpu.models.retina_unet`: the config,
-the forward and the detection post-processing; the train step comes with the
-train slice).
+the forward, target assignment and the train-step losses, and the detection
+post-processing).
 
-The batch is an explicit dimension throughout: post-processing runs all
-images of a batch together, and their NMS runs as one kernel launch.
+The batch is an explicit dimension throughout, where the JAX package
+``vmap``s one image at a time: matching and sampling run all images of a
+batch together, post-processing too, and their NMS runs as one kernel
+launch.
 """
 from __future__ import annotations
 
@@ -16,11 +18,15 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from nndetection_tpu_torch import losses as L
 from nndetection_tpu_torch.core.boxes.anchors import AnchorGenerator
 from nndetection_tpu_torch.core.boxes.coder import BoxCoder
+from nndetection_tpu_torch.core.boxes.matcher import ATSSMatcher, IoUMatcher, gather_matched
 from nndetection_tpu_torch.core.boxes.nms import batched_nms_topk
 from nndetection_tpu_torch.core.boxes.ops import clip_boxes_to_image, small_boxes_mask
+from nndetection_tpu_torch.core.boxes.sampler import HardNegativeSamplerBatched
 from nndetection_tpu_torch.models.conv import (
     CHANNELS_LAST,
     Conv,
@@ -39,9 +45,10 @@ def _tuplify(v: Any) -> Any:
 
 @dataclass(frozen=True)
 class RetinaUNetConfig:
-    """Static architecture + post-processing configuration; the same fields
-    and defaults as the JAX package's ``RetinaUNetConfig`` (the matcher,
-    sampler and loss fields are carried for the train slice)."""
+    """Static architecture, training-step and post-processing configuration;
+    the same fields and defaults as the JAX package's ``RetinaUNetConfig``.
+    ``exact_topk`` is carried for the JSON round trip: the port's top-k is
+    always exact."""
 
     dim: int = 3
     in_channels: int = 1
@@ -160,7 +167,10 @@ class RetinaUNet(nn.Module):
 
     Parameters are float32, initialized as flax initializes the JAX model
     (from ``generator`` when given); activations run in
-    ``cfg.compute_dtype``.
+    ``cfg.compute_dtype``. With ``cfg.remat`` and gradients on, the encoder,
+    decoder, classifier and regressor recompute their activations in the
+    backward pass (``torch.utils.checkpoint``), as the JAX model wraps them
+    in ``nn.remat``.
     """
 
     def __init__(self, cfg: RetinaUNetConfig, generator: Optional[torch.Generator] = None):
@@ -202,16 +212,143 @@ class RetinaUNet(nn.Module):
             self.regressor.scales.data.fill_(1.0)
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        remat = self.cfg.remat and torch.is_grad_enabled()
+
+        def run(module, arg):
+            return checkpoint(module, arg, use_reentrant=False) if remat else module(arg)
+
         x = images.to(self.cfg.compute_dtype).permute(0, 4, 1, 2, 3)
-        fmaps = self.encoder(x.contiguous(memory_format=CHANNELS_LAST))
-        decoded = self.decoder(fmaps)
+        fmaps = run(self.encoder, x.contiguous(memory_format=CHANNELS_LAST))
+        decoded = run(self.decoder, fmaps)
         head_maps = [decoded[l] for l in self.cfg.decoder_levels]
         # head outputs stay in the compute dtype; consumers upcast
         return {
-            "box_logits": self.classifier(head_maps),
-            "box_deltas": self.regressor(head_maps),
+            "box_logits": run(self.classifier, head_maps),
+            "box_deltas": run(self.regressor, head_maps),
             "seg_logits": self.segmenter(decoded),
         }
+
+
+def assign_targets(
+    cfg: RetinaUNetConfig,
+    anchors: torch.Tensor,
+    anchors_per_level: Sequence[int],
+    gt_boxes: torch.Tensor,
+    gt_classes: torch.Tensor,
+    gt_mask: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ATSS (or IoU) assignment of a batch: ``labels [B, A]`` (0 bg, -1
+    ignore, 1..C fg) and ``matched_boxes [B, A, 2*dim]``."""
+    if cfg.matcher_type == "atss":
+        matcher = ATSSMatcher(num_candidates=cfg.matcher_num_candidates,
+                              center_in_gt=cfg.matcher_center_in_gt)
+    else:
+        matcher = IoUMatcher(low_threshold=cfg.matcher_low_threshold,
+                             high_threshold=cfg.matcher_high_threshold)
+    matched = matcher(gt_boxes, gt_mask, anchors, tuple(anchors_per_level), cfg.anchors_per_loc())
+    return gather_matched(matched, gt_boxes, gt_classes)
+
+
+def train_step_loss(
+    cfg: RetinaUNetConfig,
+    predictions: Dict[str, torch.Tensor],
+    anchors: torch.Tensor,
+    anchors_per_level: Sequence[int],
+    targets: Dict[str, torch.Tensor],
+    generator: torch.Generator,
+) -> Dict[str, torch.Tensor]:
+    """Losses of one train step: the detection head (matching, hard-negative
+    sampling per image, classification and box regression) and the
+    segmentation head (CE + dice), as the JAX package's ``train_step_loss``.
+
+    Args:
+        predictions: ``box_logits [B, A, C]``, ``box_deltas [B, A, 2*dim]``,
+            ``seg_logits [B, *spatial, C+1]``
+        anchors: ``[A, 2*dim]`` on the predictions' device
+        targets: ``gt_boxes [B, G, 2*dim]``, ``gt_classes [B, G]``,
+            ``gt_mask [B, G]``, ``seg [B, *spatial]`` int
+        generator: the sampler's random numbers (unused by ``no_sampler``)
+
+    Returns scalar tensors ``cls``, ``reg``, ``seg_ce``, ``seg_dice``,
+    ``num_pos`` and ``num_neg``.
+    """
+    if cfg.segmenter_deep_supervision:
+        raise NotImplementedError("deep-supervision segmenter comes later")
+    box_logits = predictions["box_logits"]
+    box_deltas = predictions["box_deltas"]
+    b, a, c = box_logits.shape
+    labels, matched_boxes = assign_targets(
+        cfg, anchors, anchors_per_level,
+        targets["gt_boxes"], targets["gt_classes"], targets["gt_mask"])
+
+    if cfg.head_type == "no_sampler":
+        # every non-ignore anchor enters the classification loss, every
+        # positive the regression loss
+        pos_mask, neg_mask = labels >= 1, labels == 0
+        sample_mask = labels >= 0
+    else:
+        # float32 foreground probabilities rank the hard negatives
+        # (softmax minus the background column for the CE head)
+        logits32 = box_logits.detach().float()
+        if cfg.cls_loss_type == "ce":
+            fg_probs = torch.softmax(logits32, dim=-1)[..., 1:].amax(dim=-1)
+        else:
+            fg_probs = torch.sigmoid(logits32).amax(dim=-1)
+        sampler = HardNegativeSamplerBatched(
+            batch_size_per_image=cfg.batch_size_per_image,
+            positive_fraction=cfg.positive_fraction,
+            min_neg=cfg.min_neg, pool_size=cfg.pool_size, batch_size=1)
+        pos_mask, neg_mask = sampler(generator, labels, fg_probs)
+        sample_mask = pos_mask | neg_mask
+    pos_mask, neg_mask, sample_mask = (m.reshape(-1) for m in (pos_mask, neg_mask, sample_mask))
+    flat_labels = labels.reshape(-1)
+    # the "RegAll" variants and the no-sampler head regress every positive
+    reg_mask = pos_mask if cfg.head_type == "hnm" else flat_labels >= 1
+    num_pos = pos_mask.float().sum().clamp(min=1.0)
+
+    flat_logits = box_logits.reshape(-1, c)
+    cls_targets = flat_labels.clamp(min=0)
+    if cfg.cls_loss_type == "focal":
+        cls_loss = L.focal_loss(flat_logits, cls_targets, sample_mask,
+                                num_classes=cfg.classifier_classes, gamma=cfg.focal_gamma,
+                                alpha=cfg.focal_alpha) / num_pos
+    elif cfg.cls_loss_type == "ce":
+        cls_loss = L.softmax_ce_masked(flat_logits, cls_targets, sample_mask,
+                                       class_weights=cfg.class_weights)
+    else:
+        cls_loss = L.bce_one_hot(flat_logits, cls_targets, sample_mask,
+                                 num_classes=cfg.classifier_classes)
+    if cfg.head_type == "no_sampler":
+        cls_loss = cls_loss / num_pos
+
+    coder = BoxCoder(dim=cfg.dim)
+    n_coords = anchors.shape[-1]
+    flat_anchors = anchors[None].expand(b, a, n_coords).reshape(-1, n_coords)
+    flat_matched = matched_boxes.reshape(-1, n_coords)
+    flat_deltas = box_deltas.reshape(-1, n_coords)
+    if cfg.reg_loss_type == "l1":
+        reg_loss = L.smooth_l1_loss(flat_deltas, coder.encode(flat_matched, flat_anchors), reg_mask)
+    else:
+        reg_loss = L.giou_loss(coder.decode(flat_deltas, flat_anchors), flat_matched, reg_mask)
+
+    seg_target = targets["seg"]
+    if cfg.segmenter_fg_bg:
+        seg_target = (seg_target > 0).long()
+    seg_logits = predictions["seg_logits"]
+    if cfg.seg_loss_type == "dice_topk":
+        ce = L.topk_ce_loss(seg_logits, seg_target, cfg.seg_topk_fraction)
+    else:
+        ce = L.softmax_ce_loss(seg_logits, seg_target)
+    seg_dice = (1 - cfg.segmenter_alpha) * L.soft_dice_loss(
+        seg_logits, seg_target, batch_dice=cfg.batch_dice, do_bg=False)
+    return {
+        "cls": cls_loss,
+        "reg": reg_loss,
+        "seg_ce": cfg.segmenter_alpha * ce,
+        "seg_dice": seg_dice,
+        "num_pos": pos_mask.float().sum(),
+        "num_neg": neg_mask.float().sum(),
+    }
 
 
 def batched_postprocess(

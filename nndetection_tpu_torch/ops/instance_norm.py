@@ -1,7 +1,8 @@
-"""Instance norm forward over channel-last maps: the counterpart of
-``nndetection_tpu/ops/pallas_norm.py::fused_instance_norm`` (forward only).
+"""Instance norm over channel-last maps: the counterpart of
+``nndetection_tpu/ops/pallas_norm.py::fused_instance_norm``, forward and
+backward.
 
-Two Triton kernels, each beside its plain PyTorch version:
+Four Triton kernels, each beside its plain PyTorch version:
 
 * :func:`in_stats` replaces ``_stats_kernel`` (``pallas_norm.py:72``): the
   per-(b, c) mean and biased variance of ``x [B, D, Q, C]`` over the depth
@@ -12,19 +13,32 @@ Two Triton kernels, each beside its plain PyTorch version:
 * :func:`in_apply` replaces ``_apply_kernel`` (``pallas_norm.py:105``):
   ``y = (x - mean) * scale + beta`` with ``scale = rsqrt(var + eps) * gamma``
   folded in, computed in float32 and stored in x's type.
+* :func:`in_grad_stats` replaces ``_grad_stats_kernel``
+  (``pallas_norm.py:115``): ``s1 = sum(dy)`` and ``s2 = sum(dy * xhat)`` per
+  (b, c) over every voxel, ``xhat = (x - mean) * inv``.
+* :func:`in_grad_input` replaces ``_dx_kernel`` (``pallas_norm.py:135``):
+  ``dx = gamma * inv * (dy - [plane in P] * (s1 + xhat * s2) / |P|)``, where
+  ``P`` are the planes the statistics read. With ``step = 1`` this is the
+  Pallas kernel's formula; with a stride it is the gradient ``jax.grad``
+  takes through the plane-subsampled statistics, whose mean and variance
+  depend on the sampled planes only.
 
-What bounds both on the H100: memory bandwidth. Each is one pass over the
-map (the stats read it, the apply reads and writes it) with a few flops per
-element, far below the card's ~295 flops/byte balance point. The design is
-therefore coalescing and occupancy: C, the contiguous axis, is the inner
-block axis (a row of 32-64 channels is one 64-128 B segment), blocks of
-``[BLOCK_R, BLOCK_C]`` keep 8K elements in flight per program, and the stats
-pass splits the spatial rows over enough programs to fill all SMs. The TPU
-kernel carries its running mean/M2 from one grid step to the next; blocks on
-the card run in parallel, so each program keeps its own Chan-combined
-partials over its rows and a second, tiny kernel combines the
-``[B, splits, C]`` partials in one launch (a PyTorch reduction there would
-take a dozen).
+:class:`InstanceNormFunction` ties them into one ``torch.autograd.Function``
+(the counterpart of the Pallas ``custom_vjp``), on every device.
+
+What bounds all four on the H100: memory bandwidth. Each is one pass over the
+map (the stats read it, the apply reads and writes it, the gradient sums read
+``x`` and ``dy``, the input gradient reads both and writes ``dx``) with a few
+flops per element, far below the card's ~295 flops/byte balance point. The
+design is therefore coalescing and occupancy: C, the contiguous axis, is the
+inner block axis (a row of 32-64 channels is one 64-128 B segment), blocks of
+``[BLOCK_R, BLOCK_C]`` keep 8K elements in flight per program, and the two
+reductions split the spatial rows over enough programs to fill all SMs. The
+TPU kernels carry their running sums from one grid step to the next; blocks
+on the card run in parallel, so each program keeps its own partials over its
+rows and a second, tiny kernel combines the ``[B, splits, C]`` partials in
+one launch, in a fixed order: no float atomics, so two runs give the same
+bits.
 
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor they
 launch the kernel or raise.
@@ -156,6 +170,89 @@ def _in_apply_kernel(
     tl.store(y_ptr + off, y.to(y_ptr.dtype.element_ty), mask=mask)
 
 
+def _in_grad_stats_kernel(
+    x_ptr, dy_ptr, mean_ptr, inv_ptr, p1_ptr, p2_ptr, S, C, rows_per_split,
+    BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr,
+):
+    # partial sum(dy) and sum(dy * xhat) of one (split, b, channel block)
+    # over its rows, kept elementwise and reduced once at the end
+    sp = tl.program_id(0)
+    b = tl.program_id(1)
+    cb = tl.program_id(2)
+    n_splits = tl.num_programs(0)
+    cols = cb * BLOCK_C + tl.arange(0, BLOCK_C)
+    cmask = cols < C
+    mean = tl.load(mean_ptr + b * C + cols, mask=cmask, other=0.0)
+    inv = tl.load(inv_ptr + b * C + cols, mask=cmask, other=0.0)
+    r_begin = sp * rows_per_split
+    r_end = tl.minimum(r_begin + rows_per_split, S)
+    base = b.to(tl.int64) * S * C
+    acc1 = tl.zeros([BLOCK_R, BLOCK_C], dtype=tl.float32)
+    acc2 = tl.zeros([BLOCK_R, BLOCK_C], dtype=tl.float32)
+    for r0 in range(r_begin, r_end, BLOCK_R):
+        rows = r0 + tl.arange(0, BLOCK_R)
+        mask = (rows < r_end)[:, None] & cmask[None, :]
+        off = base + rows[:, None].to(tl.int64) * C + cols[None, :]
+        x = tl.load(x_ptr + off, mask=mask, other=0.0).to(tl.float32)
+        dy = tl.load(dy_ptr + off, mask=mask, other=0.0).to(tl.float32)
+        acc1 += dy
+        acc2 += dy * ((x - mean[None, :]) * inv[None, :])
+    out = (b * n_splits + sp) * C + cols
+    tl.store(p1_ptr + out, tl.sum(acc1, axis=0), mask=cmask)
+    tl.store(p2_ptr + out, tl.sum(acc2, axis=0), mask=cmask)
+
+
+def _in_grad_combine_kernel(
+    p1_ptr, p2_ptr, s1_ptr, s2_ptr, n_splits, C,
+    BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr,
+):
+    # sums the [n_splits] partials of one (b, channel block), BLOCK_S splits
+    # at a time, always in the same order
+    b = tl.program_id(0)
+    cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
+    cmask = cols < C
+    a1 = tl.zeros([BLOCK_S, BLOCK_C], dtype=tl.float32)
+    a2 = tl.zeros([BLOCK_S, BLOCK_C], dtype=tl.float32)
+    for s0 in range(0, n_splits, BLOCK_S):
+        sp = s0 + tl.arange(0, BLOCK_S)
+        mask = (sp < n_splits)[:, None] & cmask[None, :]
+        off = (b * n_splits + sp[:, None]) * C + cols[None, :]
+        a1 += tl.load(p1_ptr + off, mask=mask, other=0.0)
+        a2 += tl.load(p2_ptr + off, mask=mask, other=0.0)
+    tl.store(s1_ptr + b * C + cols, tl.sum(a1, axis=0), mask=cmask)
+    tl.store(s2_ptr + b * C + cols, tl.sum(a2, axis=0), mask=cmask)
+
+
+def _in_grad_input_kernel(
+    x_ptr, dy_ptr, dx_ptr, mean_ptr, inv_ptr, gamma_ptr, s1_ptr, s2_ptr, S, Q, C,
+    start, step, n_sel, BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr,
+):
+    # dx = gamma * inv * (dy - [plane in start::step] * (s1 + xhat * s2) / n_sel)
+    # over one [BLOCK_R, BLOCK_C] block
+    rb = tl.program_id(0)
+    b = tl.program_id(1)
+    cb = tl.program_id(2)
+    rows = rb * BLOCK_R + tl.arange(0, BLOCK_R)
+    cols = cb * BLOCK_C + tl.arange(0, BLOCK_C)
+    cmask = cols < C
+    mask = (rows < S)[:, None] & cmask[None, :]
+    off = (b.to(tl.int64) * S + rows[:, None]) * C + cols[None, :]
+    x = tl.load(x_ptr + off, mask=mask, other=0.0).to(tl.float32)
+    dy = tl.load(dy_ptr + off, mask=mask, other=0.0).to(tl.float32)
+    stat = b * C + cols
+    mean = tl.load(mean_ptr + stat, mask=cmask, other=0.0)
+    inv = tl.load(inv_ptr + stat, mask=cmask, other=0.0)
+    gamma = tl.load(gamma_ptr + cols, mask=cmask, other=0.0)
+    a = tl.load(s1_ptr + stat, mask=cmask, other=0.0) / n_sel
+    c2 = tl.load(s2_ptr + stat, mask=cmask, other=0.0) / n_sel
+    plane = rows // Q
+    sel = (plane >= start) & ((plane - start) % step == 0)
+    xhat = (x - mean[None, :]) * inv[None, :]
+    corr = tl.where(sel[:, None], a[None, :] + xhat * c2[None, :], 0.0)
+    dx = (gamma * inv)[None, :] * (dy - corr)
+    tl.store(dx_ptr + off, dx.to(dx_ptr.dtype.element_ty), mask=mask)
+
+
 def _triton():
     global tl, _kernels
     if _kernels is None:
@@ -163,8 +260,15 @@ def _triton():
         import triton.language
 
         tl = triton.language
-        _kernels = (triton, triton.jit(_in_stats_kernel), triton.jit(_in_combine_kernel),
-                    triton.jit(_in_apply_kernel))
+        _kernels = dict(
+            triton=triton,
+            stats=triton.jit(_in_stats_kernel),
+            combine=triton.jit(_in_combine_kernel),
+            apply=triton.jit(_in_apply_kernel),
+            grad_stats=triton.jit(_in_grad_stats_kernel),
+            grad_combine=triton.jit(_in_grad_combine_kernel),
+            grad_input=triton.jit(_in_grad_input_kernel),
+        )
     return _kernels
 
 
@@ -191,39 +295,52 @@ def _check_stat(t: torch.Tensor, shape, x4: torch.Tensor, name: str) -> None:
 
 
 # ----------------------------------------------------------------- stats
+def _compute_type(t: torch.Tensor) -> torch.dtype:
+    """float32 for float32 and narrower maps; float64 stays float64, so that
+    ``torch.autograd.gradcheck`` can run the plain versions."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def in_stats_plain(
     x4: torch.Tensor, start: int = 0, step: int = 1
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-(b, c) float32 mean and biased variance of ``x4 [B, D, Q, C]``
     over depth planes ``start::step`` (two-pass, centered)."""
-    sel = x4[:, start::step].float()
+    sel = x4[:, start::step].to(_compute_type(x4))
     mean = sel.mean(dim=(1, 2))
     var = (sel - mean[:, None, None]).square().mean(dim=(1, 2))
     return mean, var
 
 
+def _splits(triton, device, b: int, n_cb: int, n_rows: int, block_r: int) -> Tuple[int, int]:
+    """``(n_splits, rows_per_split)`` of a reduction over ``n_rows`` rows:
+    enough programs to fill the SMs, whole blocks per split."""
+    n_splits = max(1, min(triton.cdiv(_PROGRAMS_PER_SM * _sm_count(device), b * n_cb),
+                          triton.cdiv(n_rows, block_r)))
+    rows_per_split = triton.cdiv(triton.cdiv(n_rows, n_splits), block_r) * block_r
+    return triton.cdiv(n_rows, rows_per_split), rows_per_split
+
+
 def _in_stats_cuda(x4, start, step):
     _check_map(x4, "in_stats")
-    triton, stats_kernel, combine_kernel, _ = _triton()
+    k = _triton()
+    triton = k["triton"]
     b, d, q, c = x4.shape
     n_rows = len(range(start, d, step)) * q
     if n_rows == 0:
         raise ValueError(f"in_stats: no plane selected by {start}::{step} of {d}")
     block_r, block_c = _blocks(c)
     n_cb = triton.cdiv(c, block_c)
-    n_splits = max(1, min(triton.cdiv(_PROGRAMS_PER_SM * _sm_count(x4.device), b * n_cb),
-                          triton.cdiv(n_rows, block_r)))
-    rows_per_split = triton.cdiv(triton.cdiv(n_rows, n_splits), block_r) * block_r
-    n_splits = triton.cdiv(n_rows, rows_per_split)
+    n_splits, rows_per_split = _splits(triton, x4.device, b, n_cb, n_rows, block_r)
     # one allocation for both partials and one for both results
     part = torch.empty((2, b, n_splits, c), dtype=torch.float32, device=x4.device)
     mean, var = torch.empty((2, b, c), dtype=torch.float32, device=x4.device)
     with torch.cuda.device(x4.device):
-        stats_kernel[(n_splits, b, n_cb)](
+        k["stats"][(n_splits, b, n_cb)](
             x4, part[0], part[1], q, c, start, step, n_rows, rows_per_split,
             d * q * c, BLOCK_R=block_r, BLOCK_C=block_c, num_warps=8,
         )
-        combine_kernel[(b, n_cb)](
+        k["combine"][(b, n_cb)](
             part[0], part[1], mean, var, n_splits, c, rows_per_split, n_rows,
             BLOCK_S=_COMBINE_SPLITS, BLOCK_C=block_c, num_warps=4,
         )
@@ -251,7 +368,7 @@ def in_apply_plain(
     """``(x - mean[b]) * (rsqrt(var[b] + eps) * gamma) + beta`` in float32,
     stored in x's type."""
     scale = torch.rsqrt(var + eps) * gamma
-    y = (x4.float() - mean[:, None, None]) * scale[:, None, None] + beta
+    y = (x4.to(_compute_type(x4)) - mean[:, None, None]) * scale[:, None, None] + beta
     return y.to(x4.dtype)
 
 
@@ -262,13 +379,13 @@ def _in_apply_cuda(x4, mean, var, gamma, beta, eps):
     _check_stat(var, (b, c), x4, "in_apply var")
     _check_stat(gamma, (c,), x4, "in_apply gamma")
     _check_stat(beta, (c,), x4, "in_apply beta")
-    triton, _, _, apply_kernel = _triton()
+    k = _triton()
     s = d * q
     block_r, block_c = _blocks(c)
     y = torch.empty_like(x4)
-    grid = (triton.cdiv(s, block_r), b, triton.cdiv(c, block_c))
+    grid = (k["triton"].cdiv(s, block_r), b, k["triton"].cdiv(c, block_c))
     with torch.cuda.device(x4.device):
-        apply_kernel[grid](
+        k["apply"][grid](
             x4, y, mean, var, gamma, beta, eps, s, c,
             BLOCK_R=block_r, BLOCK_C=block_c, num_warps=8,
         )
@@ -290,14 +407,144 @@ def in_apply(
     raise NotImplementedError(f"in_apply has no kernel for {x4.device}")
 
 
+# ------------------------------------------------------- gradient sums
+def in_grad_stats_plain(
+    x4: torch.Tensor, dy4: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``s1 = sum(dy)`` and ``s2 = sum(dy * (x - mean) * inv)`` per (b, c)
+    over every voxel of ``[B, D, Q, C]``, float32."""
+    t = _compute_type(x4)
+    dy = dy4.to(t)
+    xhat = (x4.to(t) - mean[:, None, None]) * inv[:, None, None]
+    return dy.sum(dim=(1, 2)), (dy * xhat).sum(dim=(1, 2))
+
+
+def _check_grad_map(x4, dy4, name):
+    _check_map(x4, name)
+    _check_map(dy4, name)
+    if dy4.shape != x4.shape or dy4.device != x4.device:
+        raise ValueError(f"{name}: dy {tuple(dy4.shape)} on {dy4.device} does not match "
+                         f"x {tuple(x4.shape)} on {x4.device}")
+
+
+def _in_grad_stats_cuda(x4, dy4, mean, inv):
+    _check_grad_map(x4, dy4, "in_grad_stats")
+    b, d, q, c = x4.shape
+    _check_stat(mean, (b, c), x4, "in_grad_stats mean")
+    _check_stat(inv, (b, c), x4, "in_grad_stats inv")
+    k = _triton()
+    triton = k["triton"]
+    s = d * q
+    block_r, block_c = _blocks(c)
+    n_cb = triton.cdiv(c, block_c)
+    n_splits, rows_per_split = _splits(triton, x4.device, b, n_cb, s, block_r)
+    part = torch.empty((2, b, n_splits, c), dtype=torch.float32, device=x4.device)
+    s1, s2 = torch.empty((2, b, c), dtype=torch.float32, device=x4.device)
+    with torch.cuda.device(x4.device):
+        k["grad_stats"][(n_splits, b, n_cb)](
+            x4, dy4, mean, inv, part[0], part[1], s, c, rows_per_split,
+            BLOCK_R=block_r, BLOCK_C=block_c, num_warps=8,
+        )
+        k["grad_combine"][(b, n_cb)](
+            part[0], part[1], s1, s2, n_splits, c,
+            BLOCK_S=_COMBINE_SPLITS, BLOCK_C=block_c, num_warps=4,
+        )
+    LAUNCHES["in_grad_stats"] += 1
+    return s1, s2
+
+
+def in_grad_stats(
+    x4: torch.Tensor, dy4: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dispatching wrapper of :func:`in_grad_stats_plain` (CPU) and the Triton
+    gradient-sum kernel (CUDA). ``mean``/``inv [B, C]`` float32."""
+    if x4.device.type == "cpu":
+        return in_grad_stats_plain(x4, dy4, mean, inv)
+    if x4.device.type == "cuda":
+        return _in_grad_stats_cuda(x4, dy4, mean, inv)
+    raise NotImplementedError(f"in_grad_stats has no kernel for {x4.device}")
+
+
+# ------------------------------------------------------- input gradient
+def in_grad_input_plain(
+    x4: torch.Tensor, dy4: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
+    gamma: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor, start: int = 0, step: int = 1,
+) -> torch.Tensor:
+    """``dx = gamma * inv * (dy - [plane in start::step] * (s1 + xhat * s2) / n)``
+    with ``n`` the voxels of the selected planes; float32, stored in x's
+    type."""
+    t = _compute_type(x4)
+    b, d, q, c = x4.shape
+    n_sel = len(range(start, d, step)) * q
+    xhat = (x4.to(t) - mean[:, None, None]) * inv[:, None, None]
+    sel = torch.zeros(d, dtype=t, device=x4.device)
+    sel[start::step] = 1.0
+    corr = (s1[:, None, None] + xhat * s2[:, None, None]) / n_sel
+    dx = (gamma * inv)[:, None, None] * (dy4.to(t) - sel[:, None, None] * corr)
+    return dx.to(x4.dtype)
+
+
+def _in_grad_input_cuda(x4, dy4, mean, inv, gamma, s1, s2, start, step):
+    _check_grad_map(x4, dy4, "in_grad_input")
+    b, d, q, c = x4.shape
+    for name, t, shape in (("mean", mean, (b, c)), ("inv", inv, (b, c)), ("gamma", gamma, (c,)),
+                           ("s1", s1, (b, c)), ("s2", s2, (b, c))):
+        _check_stat(t, shape, x4, f"in_grad_input {name}")
+    n_sel = len(range(start, d, step)) * q
+    if n_sel == 0:
+        raise ValueError(f"in_grad_input: no plane selected by {start}::{step} of {d}")
+    k = _triton()
+    s = d * q
+    block_r, block_c = _blocks(c)
+    dx = torch.empty_like(x4)
+    grid = (k["triton"].cdiv(s, block_r), b, k["triton"].cdiv(c, block_c))
+    with torch.cuda.device(x4.device):
+        k["grad_input"][grid](
+            x4, dy4, dx, mean, inv, gamma, s1, s2, s, q, c, start, step, float(n_sel),
+            BLOCK_R=block_r, BLOCK_C=block_c, num_warps=8,
+        )
+    LAUNCHES["in_grad_input"] += 1
+    return dx
+
+
+def in_grad_input(
+    x4: torch.Tensor, dy4: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
+    gamma: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor, start: int = 0, step: int = 1,
+) -> torch.Tensor:
+    """Dispatching wrapper of :func:`in_grad_input_plain` (CPU) and the
+    Triton input-gradient kernel (CUDA). Statistics and sums float32."""
+    if x4.device.type == "cpu":
+        return in_grad_input_plain(x4, dy4, mean, inv, gamma, s1, s2, start, step)
+    if x4.device.type == "cuda":
+        return _in_grad_input_cuda(x4, dy4, mean, inv, gamma, s1, s2, start, step)
+    raise NotImplementedError(f"in_grad_input has no kernel for {x4.device}")
+
+
 # ------------------------------------------------------------ composite
-def _instance_norm(x, gamma, beta, eps, plane_stride, stats_fn, apply_fn):
-    b, d, c = x.shape[0], x.shape[1], x.shape[-1]
-    q = math.prod(x.shape[2:-1])
-    x4 = x.view(b, d, q, c)
-    start, step = plane_schedule(d, plane_stride)
-    mean, var = stats_fn(x4, start, step)
-    return apply_fn(x4, mean, var, gamma, beta, eps).view(x.shape)
+class InstanceNormFunction(torch.autograd.Function):
+    """Instance norm of ``x4 [B, D, Q, C]`` through the four wrappers: the
+    statistics over planes ``start::step``, the affine apply, and a backward
+    of one gradient-sum pass and one input-gradient pass.
+
+    It saves its input (in x's type), ``mean`` and ``inv``, never its
+    output: ``ConvNormAct`` applies ``relu_`` to the output in place."""
+
+    @staticmethod
+    def forward(ctx, x4, gamma, beta, eps: float, start: int, step: int):
+        mean, var = in_stats(x4, start, step)
+        y = in_apply(x4, mean, var, gamma, beta, eps)
+        ctx.save_for_backward(x4, mean, torch.rsqrt(var + eps), gamma)
+        ctx.planes = (start, step)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x4, mean, inv, gamma = ctx.saved_tensors
+        dy = dy.contiguous()
+        s1, s2 = in_grad_stats(x4, dy, mean, inv)
+        dx = (in_grad_input(x4, dy, mean, inv, gamma, s1, s2, *ctx.planes)
+              if ctx.needs_input_grad[0] else None)
+        return dx, s2.sum(dim=0), s1.sum(dim=0), None, None, None
 
 
 def plane_schedule(depth: int, plane_stride: Optional[int]) -> Tuple[int, int]:
@@ -310,6 +557,11 @@ def plane_schedule(depth: int, plane_stride: Optional[int]) -> Tuple[int, int]:
     return plane_stride // 2, plane_stride
 
 
+def _as_map(x: torch.Tensor) -> torch.Tensor:
+    b, d, c = x.shape[0], x.shape[1], x.shape[-1]
+    return x.view(b, d, math.prod(x.shape[2:-1]), c)
+
+
 def instance_norm(
     x: torch.Tensor,
     gamma: torch.Tensor,
@@ -319,8 +571,11 @@ def instance_norm(
 ) -> torch.Tensor:
     """Instance norm of a channel-last map ``x [B, D, *spatial, C]`` with
     ``gamma``/``beta [C]``; statistics over the planes of
-    :func:`plane_schedule`. Output in x's type."""
-    return _instance_norm(x, gamma, beta, eps, plane_stride, in_stats, in_apply)
+    :func:`plane_schedule`. Output in x's type; differentiable through
+    :class:`InstanceNormFunction`."""
+    start, step = plane_schedule(x.shape[1], plane_stride)
+    y = InstanceNormFunction.apply(_as_map(x), gamma, beta, eps, start, step)
+    return y.view(x.shape)
 
 
 def instance_norm_plain(
@@ -330,7 +585,9 @@ def instance_norm_plain(
     eps: float = 1e-5,
     plane_stride: Optional[int] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`instance_norm`."""
-    return _instance_norm(
-        x, gamma, beta, eps, plane_stride, in_stats_plain, in_apply_plain
-    )
+    """Plain PyTorch version of :func:`instance_norm` (PyTorch's autograd
+    differentiates it)."""
+    x4 = _as_map(x)
+    start, step = plane_schedule(x.shape[1], plane_stride)
+    mean, var = in_stats_plain(x4, start, step)
+    return in_apply_plain(x4, mean, var, gamma, beta, eps).view(x.shape)

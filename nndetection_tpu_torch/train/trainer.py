@@ -1,0 +1,363 @@
+"""Training runtime on one device (counterpart of
+:mod:`nndetection_tpu.train.trainer`): SGD with Nesterov momentum and no
+weight decay on norm parameters, global-norm clipping, a guard that skips
+non-finite updates, warm-up + poly learning rate, SWA weight averaging and
+versioned checkpoints.
+
+The optimizer reproduces the JAX package's optax chain
+(``trainer.py:88-114``): ``apply_if_finite(chain(clip_by_global_norm,
+masked(add_decayed_weights), sgd(schedule, momentum, nesterov)))``.
+
+* The clip scales by ``max_norm / norm`` with no epsilon (optax's formula;
+  ``torch.nn.utils.clip_grad_norm_`` adds 1e-6), on the raw gradients.
+* Weight decay is added after the clip, inside ``torch.optim.SGD``, on the
+  weights of ``Conv`` and ``ConvTranspose`` modules only: the flax
+  ``kernel`` leaves. The port names conv weights and norm scales alike
+  ``weight``, so the mask goes by module type, never by name.
+* The learning rate of an update is ``schedule(count)``, ``count`` the
+  updates applied so far (optax's own count, which a skipped step does not
+  advance).
+* A step with a non-finite gradient leaves the parameters, the momentum and
+  the count as they were; after more than ``max_consecutive_errors`` such
+  steps in a row the update is applied all the same, as optax does.
+
+PyTorch updates the model in place: :class:`TrainState` holds the model and
+the optimizer, and the epoch functions return the state they were given.
+"""
+from __future__ import annotations
+
+import math
+import resource
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from nndetection_tpu_torch.models.conv import Conv, ConvTranspose
+from nndetection_tpu_torch.models.retina_unet import (
+    RetinaUNet,
+    RetinaUNetConfig,
+    batched_postprocess,
+    train_step_loss,
+)
+from nndetection_tpu_torch.train.lr import Schedule, swa_schedule
+
+# bump when the checkpoint payload gains or renames fields
+CKPT_SCHEMA_VERSION = 1
+# optax.apply_if_finite(max_consecutive_errors=...) of the JAX trainer
+MAX_CONSECUTIVE_ERRORS = 50
+LOSS_KEYS = ("cls", "reg", "seg_ce", "seg_dice")
+
+
+@dataclass
+class TrainerConfig:
+    """The JAX package's ``TrainerConfig``, field for field."""
+
+    max_epochs: int = 50
+    num_train_batches_per_epoch: int = 2500
+    num_val_batches_per_epoch: int = 100
+    batch_size: int = 4
+    initial_lr: float = 0.01
+    sgd_momentum: float = 0.9
+    sgd_nesterov: bool = True
+    weight_decay: float = 3e-5
+    warm_iterations: int = 4000
+    warm_lr: float = 1e-6
+    poly_gamma: float = 0.9
+    swa_epochs: int = 10
+    monitor_key: str = "mAP_IoU_0.10_0.50_0.05_MaxDet_100"
+    seed: int = 42
+    grad_clip_norm: float = 12.0
+    skip_nonfinite_updates: bool = True
+
+
+@dataclass
+class TrainState:
+    """Model and optimizer with the counters of the JAX ``TrainState`` and
+    of optax's ``apply_if_finite``."""
+
+    model: RetinaUNet
+    optimizer: torch.optim.SGD
+    swa_params: Dict[str, torch.Tensor]
+    step: int = 0  # train steps taken, skipped ones included
+    swa_count: int = 0
+    opt_count: int = 0  # updates applied: the schedule's count
+    notfinite_count: int = 0  # non-finite steps in a row
+
+
+def decay_mask(model: torch.nn.Module) -> Dict[str, bool]:
+    """Parameter name -> takes weight decay: the weights of ``Conv`` and
+    ``ConvTranspose`` modules (the flax ``kernel`` leaves); norm parameters,
+    biases and the regressor's ``scales`` take none."""
+    decayed = {id(m.weight) for m in model.modules() if isinstance(m, (Conv, ConvTranspose))}
+    return {name: id(p) in decayed for name, p in model.named_parameters()}
+
+
+def lr_schedule(tcfg: TrainerConfig) -> Schedule:
+    """:func:`swa_schedule` over ``max_epochs`` epochs, one SWA cycle per
+    epoch."""
+    return swa_schedule(
+        initial_lr=tcfg.initial_lr, warm_iterations=tcfg.warm_iterations,
+        warm_lr=tcfg.warm_lr, poly_gamma=tcfg.poly_gamma,
+        train_iterations=tcfg.max_epochs * tcfg.num_train_batches_per_epoch,
+        swa_cycle_iterations=max(1, tcfg.num_train_batches_per_epoch),
+    )
+
+
+def make_optimizer(tcfg: TrainerConfig, model: torch.nn.Module) -> Tuple[torch.optim.SGD, Schedule]:
+    """Nesterov SGD over two parameter groups (decay, no decay) and the
+    learning-rate schedule of :func:`lr_schedule`."""
+    schedule = lr_schedule(tcfg)
+    mask = decay_mask(model)
+    params = dict(model.named_parameters())
+    groups = [
+        {"params": [p for n, p in params.items() if mask[n]], "weight_decay": tcfg.weight_decay},
+        {"params": [p for n, p in params.items() if not mask[n]], "weight_decay": 0.0},
+    ]
+    opt = torch.optim.SGD(groups, lr=schedule(0), momentum=tcfg.sgd_momentum,
+                          nesterov=tcfg.sgd_nesterov)
+    return opt, schedule
+
+
+def _host_max_rss_gb() -> float:
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024 ** 2  # kB on Linux
+
+
+class Trainer:
+    """Runs the train and validation steps and the epoch loop on one
+    device."""
+
+    def __init__(
+        self,
+        model_cfg: RetinaUNetConfig,
+        trainer_cfg: TrainerConfig,
+        device: torch.device,
+        output_dir: Optional[Path] = None,
+        augment_cfg: Any = None,
+    ):
+        """Batches carry ``images [B, *patch, C]``, ``gt_boxes``,
+        ``gt_classes``, ``gt_mask`` and ``seg``
+        (:func:`nndetection_tpu_torch.data.gt_prep.prepare_targets` makes
+        them from instance segmentations)."""
+        if augment_cfg is not None:
+            raise NotImplementedError(
+                "on-device augmentation is not ported yet (ROADMAP.md, queue 1 item 4)")
+        self.cfg = model_cfg
+        self.tcfg = trainer_cfg
+        self.device = torch.device(device)
+        self.output_dir = Path(output_dir) if output_dir else None
+        self.schedule = lr_schedule(trainer_cfg)
+        anchors_np, self.anchors_per_level = model_cfg.anchors()
+        self.anchors = torch.from_numpy(anchors_np).to(self.device)
+
+    # ------------------------------------------------------------------
+    def init_state(self, rng_seed: Optional[int] = None,
+                   params: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
+        """A fresh state: the model initialized from ``rng_seed`` (default
+        ``seed``), or holding ``params`` (a ``state_dict``, e.g. from
+        :func:`nndetection_tpu_torch.bridge.state_dict_from_flax`)."""
+        seed = self.tcfg.seed if rng_seed is None else rng_seed
+        model = RetinaUNet(self.cfg, generator=torch.Generator().manual_seed(seed))
+        if params is not None:
+            model.load_state_dict(params)
+        model.to(self.device)
+        optimizer, _ = make_optimizer(self.tcfg, model)
+        swa = {n: p.detach().clone() for n, p in model.named_parameters()}
+        return TrainState(model=model, optimizer=optimizer, swa_params=swa)
+
+    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+
+    def _losses(self, model, batch, generator) -> Dict[str, torch.Tensor]:
+        preds = model(batch["images"])
+        losses = train_step_loss(self.cfg, preds, self.anchors, self.anchors_per_level, batch,
+                                 generator)
+        losses["total"] = sum(losses[k] for k in LOSS_KEYS)
+        return losses
+
+    def _apply_update(self, state: TrainState) -> bool:
+        """Clip, decay and SGD, unless the gradient is not finite; True if
+        the update was applied. Reads the gradient norm on the host: the
+        step's one synchronisation."""
+        grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads))).item()
+        finite = math.isfinite(norm)
+        state.notfinite_count = 0 if finite else state.notfinite_count + 1
+        if self.tcfg.skip_nonfinite_updates and not (
+                finite or state.notfinite_count > MAX_CONSECUTIVE_ERRORS):
+            return False
+        clip = self.tcfg.grad_clip_norm
+        if clip and not norm < clip:  # optax: g / norm * max_norm
+            torch._foreach_div_(grads, norm)
+            torch._foreach_mul_(grads, clip)
+        for group in state.optimizer.param_groups:
+            group["lr"] = self.schedule(state.opt_count)
+        state.optimizer.step()
+        state.opt_count += 1
+        return True
+
+    def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                   generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """One forward, backward and update on a batch already on the
+        device; returns the losses as device scalars."""
+        state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        losses = self._losses(state.model, batch, generator)
+        losses["total"].backward()
+        self._apply_update(state)
+        state.step += 1
+        return {k: v.detach() for k, v in losses.items()}
+
+    # ------------------------------------------------------------------
+    def train_epoch(self, state: TrainState, batches: Iterable[Dict[str, Any]],
+                    epoch: int) -> Tuple[TrainState, Dict[str, float]]:
+        """One pass over ``batches``. The losses stay on the device and are
+        read once, at the end; steps with non-finite losses are left out of
+        the means and counted."""
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(self.tcfg.seed * 1000 + epoch)
+        metrics: Dict[str, List[torch.Tensor]] = {}
+        t0 = time.perf_counter()
+        for batch in batches:
+            for k, v in self.train_step(state, self._to_device(batch), generator).items():
+                metrics.setdefault(k, []).append(v)
+        host = {k: torch.stack(v).float().cpu().numpy() for k, v in metrics.items()}
+        out = {f"train_{k}": float(v[np.isfinite(v)].mean()) if np.isfinite(v).any() else math.nan
+               for k, v in host.items()}
+        bad = np.flatnonzero(~np.isfinite(host.get("total", np.zeros(0))))
+        out["train_nonfinite_steps"] = int(len(bad))
+        if len(bad):
+            out["train_first_nonfinite_step"] = float(bad[0])
+        out["host_max_rss_gb"] = _host_max_rss_gb()
+        out["epoch_time_s"] = time.perf_counter() - t0
+        out["steps"] = len(host.get("total", ()))
+        return state, out
+
+    @torch.no_grad()
+    def val_epoch(self, state: TrainState, batches: Iterable[Dict[str, Any]], epoch: int,
+                  evaluator=None) -> Dict[str, float]:
+        """Mean losses and detections per image over ``batches``."""
+        if evaluator is not None:
+            raise NotImplementedError("the evaluator is not ported yet (ROADMAP.md, queue 1 item 5)")
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(999 * (epoch + 1))
+        state.model.eval()
+        metrics: Dict[str, List[torch.Tensor]] = {}
+        for batch in batches:
+            batch = self._to_device(batch)
+            preds = state.model(batch["images"])
+            losses = train_step_loss(self.cfg, preds, self.anchors, self.anchors_per_level,
+                                     batch, generator)
+            dets = batched_postprocess(self.cfg, preds, self.anchors, self.cfg.patch_size,
+                                       with_seg=False)
+            losses["detections_per_image"] = dets["valid"].float().sum(-1).mean()
+            for k, v in losses.items():
+                metrics.setdefault(k, []).append(v)
+        return {f"val_{k}": float(torch.stack(v).mean()) for k, v in metrics.items()}
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def update_swa(self, state: TrainState) -> TrainState:
+        """Average the weights into the SWA model (once per SWA epoch)."""
+        n = float(state.swa_count)
+        for name, p in state.model.named_parameters():
+            avg = state.swa_params[name]
+            avg.copy_((avg * n + p) / (n + 1.0))
+        state.swa_count += 1
+        return state
+
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, state: TrainState, path, extra: Optional[dict] = None) -> None:
+        """A ``torch.save`` checkpoint of the whole state with the model
+        configuration as JSON-compatible data. (The JAX package's pickles
+        need flax and optax and are not read.)"""
+        payload = {
+            "schema_version": CKPT_SCHEMA_VERSION,
+            "params": state.model.state_dict(),
+            "opt_state": {
+                "optimizer": state.optimizer.state_dict(),
+                "opt_count": state.opt_count,
+                "notfinite_count": state.notfinite_count,
+            },
+            "step": state.step,
+            "swa_params": state.swa_params,
+            "swa_count": state.swa_count,
+            "model_cfg": self.cfg.to_dict(),
+            "extra": extra or {},
+        }
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        torch.save(payload, path)
+
+    def load_checkpoint(self, path) -> TrainState:
+        payload = torch.load(path, map_location=self.device, weights_only=True)
+        required = {"params", "opt_state", "step", "swa_params", "swa_count"}
+        missing = sorted(required - set(payload))
+        if missing:
+            raise ValueError(
+                f"checkpoint {path} is missing field(s) {missing} "
+                f"(schema_version={payload.get('schema_version', 'pre-1')})")
+        loaded = payload.get("schema_version", 1)
+        if loaded > CKPT_SCHEMA_VERSION:
+            raise ValueError(f"checkpoint {path} has schema_version={loaded}, this build "
+                             f"supports <= {CKPT_SCHEMA_VERSION}")
+        state = self.init_state(params=payload["params"])
+        opt = payload["opt_state"]
+        state.optimizer.load_state_dict(opt["optimizer"])
+        state.opt_count = int(opt["opt_count"])
+        state.notfinite_count = int(opt["notfinite_count"])
+        state.step = int(payload["step"])
+        state.swa_params = {k: v.to(self.device) for k, v in payload["swa_params"].items()}
+        state.swa_count = int(payload["swa_count"])
+        return state
+
+    # ------------------------------------------------------------------
+    def fit(
+        self,
+        train_iter_fn: Callable[[int], Iterable[Dict[str, Any]]],
+        val_iter_fn: Optional[Callable[[int], Iterable[Dict[str, Any]]]] = None,
+        evaluator_fn: Optional[Callable[[], Any]] = None,
+        log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
+        start_epoch: int = 0,
+        state: Optional[TrainState] = None,
+        best_score: float = -np.inf,
+        stop_after_epoch: Optional[int] = None,
+    ) -> TrainState:
+        """``max_epochs`` regular and ``swa_epochs`` SWA epochs; at the end
+        the SWA average replaces the weights. ``stop_after_epoch`` ends the
+        run early with a resumable checkpoint."""
+        if state is None:
+            state = self.init_state()
+        total_epochs = self.tcfg.max_epochs + self.tcfg.swa_epochs
+        best = best_score
+        for epoch in range(start_epoch, total_epochs):
+            state, train_metrics = self.train_epoch(state, train_iter_fn(epoch), epoch)
+            metrics = dict(train_metrics)
+            if val_iter_fn is not None:
+                evaluator = evaluator_fn() if evaluator_fn else None
+                metrics.update(self.val_epoch(state, val_iter_fn(epoch), epoch, evaluator))
+            if epoch >= self.tcfg.max_epochs:
+                state = self.update_swa(state)
+            if log_fn:
+                log_fn(epoch, metrics)
+            if self.output_dir is not None:
+                score = metrics.get(self.tcfg.monitor_key)
+                if score is not None and score > best:
+                    best = score
+                    self.save_checkpoint(state, self.output_dir / "model_best.ckpt",
+                                         {"epoch": epoch, "score": score})
+                self.save_checkpoint(state, self.output_dir / "model_last.ckpt",
+                                     {"epoch": epoch, "best_score": float(best)})
+            if stop_after_epoch is not None and stop_after_epoch <= epoch < total_epochs - 1:
+                return state
+        if self.tcfg.swa_epochs > 0 and state.swa_count > 0:
+            with torch.no_grad():
+                for name, p in state.model.named_parameters():
+                    p.copy_(state.swa_params[name])
+            if self.output_dir is not None:
+                self.save_checkpoint(state, self.output_dir / "model_last.ckpt",
+                                     {"epoch": total_epochs - 1, "swa_final": True})
+        return state
+

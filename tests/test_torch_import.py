@@ -16,17 +16,22 @@ SLICE_MODULES = [
     "nndetection_tpu_torch.core.boxes",
     "nndetection_tpu_torch.core.boxes.anchors",
     "nndetection_tpu_torch.core.boxes.coder",
+    "nndetection_tpu_torch.core.boxes.matcher",
     "nndetection_tpu_torch.core.boxes.nms",
     "nndetection_tpu_torch.core.boxes.ops",
     "nndetection_tpu_torch.core.boxes.ops_np",
+    "nndetection_tpu_torch.core.boxes.sampler",
     "nndetection_tpu_torch.core.boxes.wbc",
     "nndetection_tpu_torch.data",
+    "nndetection_tpu_torch.data.gt_prep",
+    "nndetection_tpu_torch.data.instances",
     "nndetection_tpu_torch.data.patching",
     "nndetection_tpu_torch.inference",
     "nndetection_tpu_torch.inference.ensembler",
     "nndetection_tpu_torch.inference.predictor",
     "nndetection_tpu_torch.inference.restore",
     "nndetection_tpu_torch.inference.tta",
+    "nndetection_tpu_torch.losses",
     "nndetection_tpu_torch.models",
     "nndetection_tpu_torch.models.blocks",
     "nndetection_tpu_torch.models.conv",
@@ -38,6 +43,9 @@ SLICE_MODULES = [
     "nndetection_tpu_torch.ops._build",
     "nndetection_tpu_torch.ops.instance_norm",
     "nndetection_tpu_torch.ops.nms",
+    "nndetection_tpu_torch.train",
+    "nndetection_tpu_torch.train.lr",
+    "nndetection_tpu_torch.train.trainer",
 ]
 
 
