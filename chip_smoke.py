@@ -12,12 +12,16 @@ Phases, each printing its findings:
    PyTorch version on the card, at the shapes of those paths (instance-norm
    statistics, apply, gradient sums and input gradient at the LUNA plan's
    stage shapes, bf16 and f32, exact and plane-subsampled, and at the train
-   batch's stage 0; NMS at 16 x 1000 and 2 x 10000 boxes), with median
-   times from CUDA events;
+   batch's stage 0; NMS at 16 x 1000 and 2 x 10000 boxes; the fused conv +
+   statistics (#5) at every fused LUNA shape at batch 2 and stage 0b at the
+   train batch), with median times from CUDA events, the time of one
+   PyTorch call computing the same function where there is one, and the
+   bound (HBM bytes or tensor-core flops at the H100's published peaks);
 4. reference: a tiny float32 model on the card against the same model on
    the CPU, TF32 off (forward, post-processing, whole-case prediction, and
    one ``Trainer.train_step`` with the same sampler draws on both: losses,
-   every gradient, every parameter after the update);
+   every gradient, every parameter after the update); then the forward and
+   one step under ``NNDET_CONV_FUSED=1`` at bf16-sized tolerances;
 5. forward: the full-width LUNA-plan RetinaUNet (patch 96x128x128, 6
    stages, 32..320 channels, 27 anchors/position) in bf16 from a seeded
    initialization; every output finite;
@@ -28,19 +32,27 @@ Phases, each printing its findings:
    as the config sets it), 2 warm-up steps then 5 timed ones, on a seeded
    batch made as ``bench.py`` makes it; the launch counts are reset just
    before and all four instance-norm kernels must have run; every loss
-   finite, positives matched, parameters changed.
+   finite, positives matched, parameters changed;
+8. serve fused and train fused: phases 6 (the 140x320x320 case) and 7 under
+   ``NNDET_CONV_FUSED=1``, restored after; #5 must launch 7 times per model
+   forward (both convs of stage 0, the second of stages 1-5), so 14 times
+   per train step with remat, beside the other kernels.
 
 Then one JSON line with each kernel's route, source, launches in the phase
-that drives it (train for the instance norm, serve for NMS), max error and
-times, the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
-Any failure raises: the exit code is non-zero and no result line is printed.
+that drives it (serve for NMS, train fused for #5, train for the instance
+norm), max error, times and bound, the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
+non-zero and no result line is printed.
 
 ``--profile=DIR`` adds a ``torch.profiler`` trace of one train step (kernel
 time by name; the table into ``DIR/train_profile.txt``).
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -59,6 +71,25 @@ LUNA_STAGES = [
 NMS_SHAPES = [(16, 1000, 100), (2, 10000, 100)]
 # the train batch's stage 0: where the backward kernels' time is reported
 TRAIN_STAGE0 = (8, 96, 128, 128, 32)
+# the fused convolutions of the LUNA plan under NNDET_CONV_FUSED=1, as
+# (x shape [B, D, H, W, Ci], Co): both convs of stage 0, the second conv of
+# stages 1-5; at batch 2, then stage 0b at the train batch, where #5's time
+# is reported
+CONV_SHAPES = [
+    ((2, 96, 128, 128, 1), 32),
+    ((2, 96, 128, 128, 32), 32),
+    ((2, 48, 64, 64, 64), 64),
+    ((2, 24, 32, 32, 128), 128),
+    ((2, 12, 16, 16, 256), 256),
+    ((2, 6, 8, 8, 320), 320),
+    ((2, 3, 4, 4, 320), 320),
+]
+CONV_TRAIN = ((8, 96, 128, 128, 32), 32)
+# the H100 SXM's published peaks (NVIDIA's data sheet, dense): HBM3 bytes/s,
+# bf16 tensor-core and float32 non-tensor flops/s
+PEAK_BYTES = 3.35e12
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
 # stated tolerances of kernel against plain version on the card
 TOL = {
     # statistics: same float32 inputs, other summation order
@@ -77,6 +108,15 @@ TOL = {
     # float32, one bfloat16 ulp in bfloat16
     "in_grad_input_f32": dict(rtol=1e-5, atol=1e-5),
     "in_grad_input_bf16": dict(rtol=1e-2, atol=1e-2),
+    # fused conv y: the kernel sums exact bf16 products in float32, the plain
+    # version in float64; both round once to bf16: one bf16 ulp (2^-7
+    # relative at the bottom of a binade), plus the float32 sum's error for
+    # values near zero
+    "conv_y": dict(rtol=2.0 ** -7, atol=1e-4),
+    # fused conv statistics against two-pass float32 statistics of the
+    # kernel's own y: same values, other summation order (tile partials,
+    # then Chan's combine)
+    "conv_stats": dict(rtol=1e-4, atol=1e-5),
 }
 KERNELS = {
     "in_stats": dict(route="triton", source="nndetection_tpu_torch/ops/instance_norm.py",
@@ -89,7 +129,34 @@ KERNELS = {
                           replaces="nndetection_tpu/ops/pallas_norm.py:135"),
     "nms_topk": dict(route="cuda", source="nndetection_tpu_torch/csrc/nms_topk.cu",
                      replaces="nndetection_tpu/ops/pallas_ops.py:132"),
+    "conv3d_in_stats": dict(route="cuda", source="nndetection_tpu_torch/csrc/conv3d_in_stats.cu",
+                            replaces="nndetection_tpu/ops/pallas_conv.py:68"),
 }
+
+
+# card vs CPU of the tiny float32 step: float32 on both sides, cuDNN and
+# the CPU sum the backward in other orders
+REF_STEP_TOL = dict(loss=(1e-4, 1e-5), grad=1e-3, param=(1e-5, 1e-5))
+# the same under NNDET_CONV_FUSED=1: the fused layers are bf16 on both sides
+# (the conv's y, its VJP's output), and where the kernel's float32 sum and
+# the plain version's float64 one round y to neighbouring bf16 values, the
+# relus and norms that follow amplify the flip: an activation near zero
+# passes or blocks its gradient on one side only. Tensors whose gradient is
+# a nearly cancelling sum (norm biases, weights ahead of a norm) then differ
+# by tens of percent of their own size, so the step is held as whole
+# vectors, |g_card - g_cpu| / |g_cpu| over all parameters (0.103 measured on
+# the H100 for this model), and each fused layer's Function alone is held
+# tightly below (FUSED_FN_TOL)
+REF_STEP_TOL_FUSED = dict(loss=(1e-3, 1e-4), global_rel=0.25)
+FUSED_FWD_TOL = 1e-2  # times max|out| of each output
+# the fused conv + norm Function of one layer, card vs CPU, relative L2 of
+# the output and every gradient: y flips between the kernel and the plain
+# version, cuDNN's bf16 conv VJP against the CPU's float32 one rounded to
+# bf16 (measured up to 3.2e-4 on the H100)
+FUSED_FN_TOL = 2e-3
+# (x shape, Co) of the tiny model's fused layers at its 32^3 patch
+TINY_FUSED_LAYERS = [((2, 32, 32, 32, 1), 8), ((2, 32, 32, 32, 8), 8), ((2, 16, 16, 16, 16), 16),
+                     ((2, 8, 8, 8, 32), 32), ((2, 4, 4, 4, 64), 64)]
 
 
 def log(*args) -> None:
@@ -136,6 +203,19 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(n_bytes: float, flops: float, peak_flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the operations over their peak rate."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / peak_flops
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": n_bytes, "bound_flops": flops}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def check_close(name, got, want, rtol, atol) -> float:
@@ -207,7 +287,7 @@ def _grad_kernels(x4, dy4, gamma, start, step, reps):
 
 
 def phase_kernels(device, stages=LUNA_STAGES, nms_shapes=NMS_SHAPES, train_stage0=TRAIN_STAGE0,
-                  reps=20):
+                  conv_shapes=CONV_SHAPES, conv_train=CONV_TRAIN, reps=20):
     """Each kernel against its plain version; returns per-kernel max error
     and the times at the main path's representative shape (stage 0, bf16,
     the default plane_sub:8 schedule for IN, at batch 2 for the forward and
@@ -257,6 +337,15 @@ def phase_kernels(device, stages=LUNA_STAGES, nms_shapes=NMS_SHAPES, train_stage
                     for k in ("in_stats", "in_apply"):
                         summary[k].update(ms=times[k], plain_ms=times[k + "_plain"],
                                           shape=f"{list(shape)} bf16 planes {start}::{step}")
+                    sel = x4[:, start::step]
+                    # stats: the selected planes read once, ~3 flops each;
+                    # apply: x read and y written once, ~3 flops each
+                    summary["in_stats"].update(
+                        library_ms=median_ms(lambda: torch.var_mean(sel, dim=(1, 2), correction=0),
+                                             reps),
+                        **bound(nbytes(sel, mean, var), 3 * sel.numel(), PEAK_F32))
+                    summary["in_apply"].update(library_ms=None, **bound(
+                        nbytes(x4, x4, mean, var, gamma, beta), 3 * x4.numel(), PEAK_F32))
                 errs, _ = _grad_kernels(x4, dy4, gamma, start, step, reps)
                 note_err(errs)
     # the backward's representative time: stage 0 of the train batch
@@ -269,8 +358,12 @@ def phase_kernels(device, stages=LUNA_STAGES, nms_shapes=NMS_SHAPES, train_stage
     errs, times = _grad_kernels(x4, dy4, gamma, start, step, reps)
     note_err(errs)
     for k in ("in_grad_stats", "in_grad_input"):
-        summary[k].update(ms=times[k], plain_ms=times[k + "_plain"],
+        summary[k].update(ms=times[k], plain_ms=times[k + "_plain"], library_ms=None,
                           shape=f"{list(train_stage0)} bf16 planes {start}::{step}")
+    # gradient sums: x and dy read, ~4 flops each; input gradient: x and dy
+    # read, dx written, ~8 flops each
+    summary["in_grad_stats"].update(**bound(nbytes(x4, dy4), 4 * x4.numel(), PEAK_F32))
+    summary["in_grad_input"].update(**bound(nbytes(x4, dy4, x4), 8 * x4.numel(), PEAK_F32))
     del x4, dy4
     log(f"[kernels] instance norm checks took {time.perf_counter() - t0:.1f} s (Triton compiles included)")
 
@@ -294,9 +387,68 @@ def phase_kernels(device, stages=LUNA_STAGES, nms_shapes=NMS_SHAPES, train_stage
         log(f"[kernels] nms_topk images {n_img} boxes {n} max_out {max_out}: indices identical, "
             f"{int(valid.sum())} kept, {ms:.4f} ms (plain {plain_ms:.4f})")
         if ni == 0:
-            summary["nms_topk"].update(ms=ms, plain_ms=plain_ms,
-                                       shape=f"{n_img} images x {n} boxes, max_out {max_out}")
+            # the work this run's data needs: one IoU (~25 flops) and one
+            # comparison of the arg-max per box for each step that found a
+            # box alive; boxes and scores read once, indices and flags
+            # written once. The steps form a chain of max_out dependent
+            # block-wide reductions, a latency this bound does not count.
+            steps = int(valid.sum())
+            summary["nms_topk"].update(
+                ms=ms, plain_ms=plain_ms, library_ms=None,
+                shape=f"{n_img} images x {n} boxes, max_out {max_out}",
+                **bound(nbytes(boxes, scores) + n_img * max_out * 5, steps * n * 26, PEAK_F32))
+    log(f"[kernels] took {time.perf_counter() - t0:.1f} s so far")
+    summary["conv3d_in_stats"].update(conv_kernel_checks(device, conv_shapes, conv_train))
     return summary
+
+
+def conv_kernel_checks(device, shapes=CONV_SHAPES, train=CONV_TRAIN, reps=10) -> dict:
+    """#5 against its plain version at every fused shape: y within one bf16
+    ulp of the plain (float64-summed) conv, the statistics against two-pass
+    statistics of the kernel's own y. Times the kernel, the plain version,
+    the library composition it replaces (cuDNN ``F.conv3d`` in bf16 on
+    channels_last_3d, then ``torch.var_mean``) and states the bound; the
+    summary is the train batch's stage 0b."""
+    from nndetection_tpu_torch.ops.conv_in_stats import conv3d_in_stats, conv3d_in_stats_plain
+
+    gd = torch.Generator(device=device).manual_seed(2)
+    err = 0.0
+    out = {}
+    for i, (xs, co) in enumerate(list(shapes) + [train]):
+        ci = xs[-1]
+        x = torch.randn(xs, generator=gd, device=device).to(torch.bfloat16)
+        w = torch.randn((3, 3, 3, ci, co), generator=gd, device=device) * (2.0 / (27 * ci)) ** 0.5
+        y, mean, var = conv3d_in_stats(x, w)
+        py, _, _ = conv3d_in_stats_plain(x, w)
+        name = f"conv3d_in_stats {list(xs)} -> {co}"
+        e_y = check_close(f"{name} y", y, py, **TOL["conv_y"])
+        yf = y.float()
+        kmean = yf.mean(dim=(1, 2, 3))
+        kvar = (yf - kmean[:, None, None, None]).square().mean(dim=(1, 2, 3))
+        e_s = max(check_close(f"{name} mean", mean, kmean, **TOL["conv_stats"]),
+                  check_close(f"{name} var", var, kvar, **TOL["conv_stats"]))
+        del py, yf
+        err = max(err, e_y, e_s)
+        xn, wn = x.permute(0, 4, 1, 2, 3), w.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous()
+
+        def library():
+            yl = torch.nn.functional.conv3d(xn, wn, padding=1)
+            return torch.var_mean(yl, dim=(2, 3, 4), correction=0)
+
+        ms = median_ms(lambda: conv3d_in_stats(x, w), reps)
+        plain_ms = median_ms(lambda: conv3d_in_stats_plain(x, w), 3, 1)
+        library_ms = median_ms(library, reps)
+        flops = 2 * 27 * ci * co * x.numel() // ci
+        b = bound(nbytes(x, w.to(torch.bfloat16), y, mean, var), flops, PEAK_BF16)
+        log(f"[kernels] {name}: y err {e_y:.2e}, stats err {e_s:.2e}; {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, cuDNN conv + var_mean "
+            f"{library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        if i == len(shapes):
+            out = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, tflops=flops / ms / 1e9,
+                       shape=f"{list(xs)} bf16 -> {co}", **b)
+        del x, y
+    out["max_abs_err"] = err
+    return out
 
 
 def spread(model, scale=100.0):
@@ -353,6 +505,86 @@ def phase_reference(device) -> None:
     reference_train_step(device, cfg, cpu_model.state_dict())
 
 
+@contextlib.contextmanager
+def conv_fused():
+    """``NNDET_CONV_FUSED=1`` inside, the caller's setting restored after, so
+    that the other phases keep measuring the default configuration."""
+    old = os.environ.get("NNDET_CONV_FUSED")
+    os.environ["NNDET_CONV_FUSED"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["NNDET_CONV_FUSED"]
+        else:
+            os.environ["NNDET_CONV_FUSED"] = old
+
+
+def phase_reference_fused(device) -> None:
+    """The tiny float32 model under ``NNDET_CONV_FUSED=1`` on the card
+    against the CPU: a forward, and one train step of the ``no_sampler``
+    head (the hard-negative heads rank negatives by scores that differ at
+    bf16 level here, and would pick other negatives)."""
+    import dataclasses
+
+    from nndetection_tpu_torch.models.retina_unet import RetinaUNet
+    from nndetection_tpu_torch.ops import LAUNCHES
+
+    cfg = dataclasses.replace(tiny_cfg(), head_type="no_sampler")
+    cpu_model = RetinaUNet(cfg, torch.Generator().manual_seed(0)).eval()
+    dev_model = RetinaUNet(cfg).to(device).eval()
+    dev_model.load_state_dict(cpu_model.state_dict())
+    x = torch.from_numpy(np.random.RandomState(1).standard_normal((2, 32, 32, 32, 1)).astype(np.float32))
+    with conv_fused(), torch.inference_mode():
+        n0 = LAUNCHES["conv3d_in_stats"]
+        want = cpu_model(x)
+        got = dev_model(x.to(device))
+        torch.cuda.synchronize()
+        n_launch = LAUNCHES["conv3d_in_stats"] - n0
+        errs = {k: check_close(f"reference fused {k}", got[k].cpu(), want[k], 0,
+                               FUSED_FWD_TOL * float(want[k].abs().max())) for k in want}
+    # the tiny model's fused layers: both convs of stage 0, the second of stages 1-3
+    if n_launch != 5:
+        raise AssertionError(f"reference fused forward: {n_launch} conv3d_in_stats launches, want 5")
+    log("[reference] tiny float32 model under NNDET_CONV_FUSED=1, card vs CPU, max abs err: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f"; {n_launch} conv3d_in_stats launches")
+    fused_function_check(device)
+    with conv_fused():
+        reference_train_step(device, cfg, cpu_model.state_dict(), REF_STEP_TOL_FUSED,
+                             "tiny float32 NNDET_CONV_FUSED=1")
+
+
+def fused_function_check(device, layers=TINY_FUSED_LAYERS) -> None:
+    """``conv_instance_norm`` (the fused kernel, the apply, and the backward
+    through the instance-norm kernels and cuDNN's bf16 conv VJP) on the card
+    against the CPU, float32 model, at the tiny model's fused layers: the
+    output and the gradients of x, w, gamma and beta."""
+    from nndetection_tpu_torch.ops.conv_in_stats import conv_instance_norm
+
+    g = torch.Generator().manual_seed(5)
+    worst = 0.0
+    for xs, co in layers:
+        ci = xs[-1]
+        x = torch.randn(xs, generator=g)
+        w = torch.randn((co, ci, 3, 3, 3), generator=g) * (2.0 / (27 * ci)) ** 0.5
+        gamma, beta = torch.rand(co, generator=g) + 0.5, torch.randn(co, generator=g) * 0.1
+        r = torch.randn((*xs[:-1], co), generator=g)
+        runs = []
+        for dev in ("cpu", device):
+            leaves = [t.to(dev).clone().requires_grad_() for t in (x, w, gamma, beta)]
+            out = conv_instance_norm(*leaves, 1e-5, torch.float32)
+            (torch.relu(out) * r.to(dev)).sum().backward()
+            runs.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
+        for name, got, want in zip(("out", "dx", "dw", "dgamma", "dbeta"), runs[1], runs[0]):
+            rel = _rel_l2([got], [want])
+            if not rel <= FUSED_FN_TOL:
+                raise AssertionError(f"fused Function {list(xs)} -> {co} {name}: card vs CPU "
+                                     f"{rel:.3e} relative, beyond {FUSED_FN_TOL}")
+            worst = max(worst, rel)
+    log(f"[reference] fused conv + norm Function at the tiny model's {len(layers)} fused layers, "
+        f"card vs CPU: output and gradients within {worst:.2e} relative")
+
+
 def instance_batch(rng, batch, patch, max_inst=8):
     """A seeded raw batch as ``bench.py:62-76`` makes it: one cube of
     instance id 1 per image around a random centre, class 0, noise images."""
@@ -376,11 +608,18 @@ def train_targets(device, batch, patch, seed=0):
     return prepare_targets(*(torch.from_numpy(a).to(device) for a in (images, seg, table)))
 
 
-def reference_train_step(device, cfg, params) -> None:
-    """One ``Trainer.train_epoch`` step of the tiny float32 model (hard-negative
-    head) on the card against the CPU, with the sampler's draws made once on
-    the CPU and replayed on the card: losses, the gradient of every
-    parameter, and every parameter after the update."""
+def _rel_l2(got, want) -> float:
+    """``|got - want| / |want|`` of the concatenated tensors."""
+    num = sum(float((g - w).double().square().sum()) for g, w in zip(got, want))
+    den = sum(float(w.double().square().sum()) for w in want)
+    return math.sqrt(num / den)
+
+
+def reference_train_step(device, cfg, params, tol=REF_STEP_TOL, label="tiny float32") -> None:
+    """One ``Trainer.train_epoch`` step of the tiny float32 model on the
+    card against the CPU, with the sampler's draws made once on the CPU and
+    replayed on the card: losses, the gradient of every parameter, and every
+    parameter after the update."""
     from nndetection_tpu_torch.core.boxes import sampler
     from nndetection_tpu_torch.train.trainer import Trainer, TrainerConfig
 
@@ -424,18 +663,30 @@ def reference_train_step(device, cfg, params) -> None:
     for k in ("cls", "reg", "seg_ce", "seg_dice", "num_pos", "num_neg"):
         want = torch.tensor(m_cpu[f"train_{k}"])
         errs[k] = check_close(f"reference train {k}", torch.tensor(m_dev[f"train_{k}"]), want,
-                              1e-4, 1e-5)
+                              *tol["loss"])
     if m_cpu["train_num_pos"] <= 0:
         raise AssertionError("reference train step: no positive anchor")
-    # float32 on both sides; cuDNN and the CPU sum the backward in other orders
-    g_err = p_err = 0.0
-    for name, p in p_dev.items():
-        want = g_cpu[name]
-        g_err = max(g_err, check_close(f"reference grad {name}", g_dev[name], want, 0,
-                                       1e-3 * float(want.abs().max())))
-        p_err = max(p_err, check_close(f"reference param {name}", p.detach().cpu(),
-                                       p_cpu[name].detach(), 1e-5, 1e-5))
-    log("[reference] tiny float32 train step, card vs CPU (same sampler draws, TF32 off), "
+    if "global_rel" in tol:
+        names = list(p_dev)
+        g_rel = _rel_l2([g_dev[n] for n in names], [g_cpu[n] for n in names])
+        upd = lambda pp: [pp[n].detach().cpu() - params[n].cpu() for n in names]  # noqa: E731
+        u_rel = _rel_l2(upd(p_dev), upd(p_cpu))
+        worst = sorted(names, key=lambda n: float((g_dev[n] - g_cpu[n]).norm()))[-3:]
+        log(f"[reference] {label}: |g_card - g_cpu| / |g_cpu| {g_rel:.3e}, the same of the "
+            f"updates {u_rel:.3e}; largest differences in " + ", ".join(worst))
+        if not (g_rel <= tol["global_rel"] and u_rel <= tol["global_rel"]):
+            raise AssertionError(f"reference {label}: gradient or update beyond "
+                                 f"{tol['global_rel']} relative")
+        g_err, p_err = g_rel, u_rel
+    else:
+        g_err = p_err = 0.0
+        for name, p in p_dev.items():
+            want = g_cpu[name]
+            g_err = max(g_err, check_close(f"reference grad {name}", g_dev[name], want, 0,
+                                           tol["grad"] * float(want.abs().max())))
+            p_err = max(p_err, check_close(f"reference param {name}", p.detach().cpu(),
+                                           p_cpu[name].detach(), *tol["param"]))
+    log(f"[reference] {label} train step, card vs CPU (same sampler draws, TF32 off), "
         "max abs err: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
         + f", gradients {g_err:.2e}, parameters after the update {p_err:.2e}; "
         f"num_pos {m_cpu['train_num_pos']:.0f}, num_neg {m_cpu['train_num_neg']:.0f}")
@@ -464,8 +715,18 @@ def phase_forward(device, patch=(96, 128, 128), batch=2) -> None:
         + f"; {ms:.2f} ms per forward (median of 5)")
 
 
+SERVE_KERNELS = ("in_stats", "in_apply", "nms_topk")
+TRAIN_KERNELS = ("in_stats", "in_apply", "in_grad_stats", "in_grad_input")
+# conv3d_in_stats launches per forward of the LUNA plan under
+# NNDET_CONV_FUSED=1: both convs of stage 0 and the second conv of stages
+# 1-5 (3x3x3, stride 1, instance norm; the first conv of stages 1-5 is
+# strided, so unfused)
+FUSED_PER_FORWARD = 7
+
+
 def phase_serve(device, cases=(((140, 320, 320), False), ((96, 256, 256), True)),
-                patch=(96, 128, 128)):
+                patch=(96, 128, 128), label="serve", required=SERVE_KERNELS):
+    """Returns the launches of the phase and the model forwards it ran."""
     from nndetection_tpu_torch.inference.predictor import ModelBundle, Predictor
     from nndetection_tpu_torch.models.retina_unet import RetinaUNet
     from nndetection_tpu_torch.ops import LAUNCHES
@@ -473,6 +734,7 @@ def phase_serve(device, cases=(((140, 320, 320), False), ((96, 256, 256), True))
     cfg = luna_cfg(patch)
     params = RetinaUNet(cfg, torch.Generator().manual_seed(0)).state_dict()
     rng = np.random.RandomState(0)
+    forwards = 0
     LAUNCHES.clear()
     for shape, tta in cases:
         predictor = Predictor([ModelBundle(cfg=cfg, params=params, name="luna")], tta=tta,
@@ -488,26 +750,40 @@ def phase_serve(device, cases=(((140, 320, 320), False), ((96, 256, 256), True))
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
         n_tiles = len(res["ensembler"].model_results[next(iter(res["ensembler"].model_results))]["scores"])
+        forwards += 2 * math.ceil(n_tiles / predictor.tiles_per_call)
         boxes = res["pred_boxes"]
         if not (np.isfinite(boxes).all() and np.isfinite(res["pred_scores"]).all()):
-            raise AssertionError("serve: non-finite detections")
+            raise AssertionError(f"{label}: non-finite detections")
         if len(boxes) and ((boxes[:, [0, 1, 4]] < -1e-3).any() or
                            (boxes[:, [2, 3, 5]] > np.asarray(shape)[[0, 1, 2]] + 1e-3).any()):
-            raise AssertionError("serve: boxes outside the case")
-        log(f"[serve] case {shape} tta={tta}: first {seconds[0]:.4f} s, warm {seconds[1]:.4f} s "
+            raise AssertionError(f"{label}: boxes outside the case")
+        log(f"[{label}] case {shape} tta={tta}: first {seconds[0]:.4f} s, warm {seconds[1]:.4f} s "
             f"({60 / seconds[1]:.1f} volumes/min), {n_tiles} tiles x "
             f"{len(predictor.tta_flips)} flips, {predictor.tiles_per_call} tiles per call, "
             f"{len(boxes)} detections")
     launches = dict(LAUNCHES)
-    missing = [k for k in ("in_stats", "in_apply", "nms_topk") if launches.get(k, 0) == 0]
+    missing = [k for k in required if launches.get(k, 0) == 0]
     if missing:
-        raise AssertionError(f"serve: kernels never launched on the main path: {missing}")
-    log(f"[serve] kernel launches during serve: {launches}")
+        raise AssertionError(f"{label}: kernels never launched on the main path: {missing}")
+    log(f"[{label}] kernel launches during {label}: {launches}, {forwards} model forwards")
+    return launches, forwards
+
+
+def phase_serve_fused(device, cases=(((140, 320, 320), False),), patch=(96, 128, 128)):
+    """``phase_serve`` under ``NNDET_CONV_FUSED=1``: #5 on every fused layer
+    of every forward, beside the unfused kernels on the other layers."""
+    with conv_fused():
+        launches, forwards = phase_serve(device, cases, patch, "serve fused",
+                                         SERVE_KERNELS + ("conv3d_in_stats",))
+    want = FUSED_PER_FORWARD * forwards
+    if launches["conv3d_in_stats"] != want:
+        raise AssertionError(f"serve fused: {launches['conv3d_in_stats']} conv3d_in_stats "
+                             f"launches, want {FUSED_PER_FORWARD} x {forwards} forwards")
     return launches
 
 
 def phase_train(device, patch=(96, 128, 128), batch=8, warmup=2, steps=5,
-                profile_dir=None) -> dict:
+                profile_dir=None, label="train", required=TRAIN_KERNELS) -> dict:
     """``Trainer.train_epoch`` on the LUNA plan: ``warmup`` steps, then
     ``steps`` timed ones; the launch counts cover both."""
     from nndetection_tpu_torch.ops import LAUNCHES
@@ -531,30 +807,47 @@ def phase_train(device, patch=(96, 128, 128), batch=8, warmup=2, steps=5,
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    missing = [k for k in ("in_stats", "in_apply", "in_grad_stats", "in_grad_input")
-               if launches.get(k, 0) == 0]
+    missing = [k for k in required if launches.get(k, 0) == 0]
     if missing:
-        raise AssertionError(f"train: kernels never launched on the main path: {missing}")
+        raise AssertionError(f"{label}: kernels never launched on the main path: {missing}")
     for metrics in (m_warm, m):
         bad = [k for k, v in metrics.items() if k.startswith("train_") and not np.isfinite(v)]
         if bad or metrics["train_nonfinite_steps"]:
-            raise AssertionError(f"train: non-finite losses {bad}")
+            raise AssertionError(f"{label}: non-finite losses {bad}")
     if not m["train_num_pos"] > 0:
-        raise AssertionError("train: no positive anchor matched")
+        raise AssertionError(f"{label}: no positive anchor matched")
     changed = sum(not torch.equal(p, before[n]) for n, p in state.model.named_parameters())
     if changed == 0:
-        raise AssertionError("train: no parameter changed")
-    log(f"[train] LUNA plan patch {patch} batch {batch} bf16 remat={cfg.remat}: "
+        raise AssertionError(f"{label}: no parameter changed")
+    log(f"[{label}] LUNA plan patch {patch} batch {batch} bf16 remat={cfg.remat}: "
         f"first {warmup} steps {t1 - t0:.2f} s; {steps} steps {seconds:.3f} s = "
         f"{seconds / steps:.4f} s/step, {steps * batch / seconds:.2f} patches/s; "
         f"peak device memory {peak:.2f} GiB; losses "
         + ", ".join(f"{k} {m['train_' + k]:.4f}" for k in ("cls", "reg", "seg_ce", "seg_dice", "total"))
         + f"; num_pos {m['train_num_pos']:.1f} num_neg {m['train_num_neg']:.1f} per step; "
         f"{changed}/{len(before)} parameter tensors changed")
-    log(f"[train] kernel launches during train: {launches}")
+    log(f"[{label}] kernel launches during {label}: {launches}")
     if profile_dir is not None:
         profile_train_step(trainer, state, targets, profile_dir)
-    return launches
+    return dict(launches=launches, steps=warmup + steps, remat=cfg.remat,
+                s_per_step=seconds / steps, patches_per_s=steps * batch / seconds, peak_gib=peak)
+
+
+def phase_train_fused(device, unfused, **kwargs) -> dict:
+    """``phase_train`` under ``NNDET_CONV_FUSED=1``: #5 on every fused layer,
+    twice per step with remat (the encoder runs again in the backward)."""
+    with conv_fused():
+        r = phase_train(device, label="train fused",
+                        required=TRAIN_KERNELS + ("conv3d_in_stats",), **kwargs)
+    want = FUSED_PER_FORWARD * (2 if r["remat"] else 1) * r["steps"]
+    if r["launches"]["conv3d_in_stats"] != want:
+        raise AssertionError(f"train fused: {r['launches']['conv3d_in_stats']} conv3d_in_stats "
+                             f"launches in {r['steps']} steps, want {want}")
+    log(f"[train fused] against the default configuration in this run: "
+        f"{r['s_per_step']:.4f} vs {unfused['s_per_step']:.4f} s/step, "
+        f"{r['patches_per_s']:.2f} vs {unfused['patches_per_s']:.2f} patches/s, "
+        f"peak {r['peak_gib']:.2f} vs {unfused['peak_gib']:.2f} GiB")
+    return r
 
 
 def profile_train_step(trainer, state, targets, out_dir) -> None:
@@ -592,15 +885,25 @@ def main() -> None:
     phase_build()
     summary = phase_kernels(device)
     phase_reference(device)
+    phase_reference_fused(device)
     phase_forward(device)
-    launches = {"serve": phase_serve(device), "train": phase_train(device, profile_dir=profile_dir)}
+    launches = {"serve": phase_serve(device)[0]}
+    train = phase_train(device, profile_dir=profile_dir)
+    launches["train"] = train["launches"]
+    launches["serve fused"] = phase_serve_fused(device)
+    launches["train fused"] = phase_train_fused(device, train)["launches"]
+    # each kernel's launches in the phase that drives it: NMS in serving,
+    # the instance norm in training, #5 in the fused training
+    phases = {"nms_topk": "serve", "conv3d_in_stats": "train fused"}
     kernels = []
     for name in KERNELS:
-        phase = "serve" if name == "nms_topk" else "train"
+        phase = phases.get(name, "train")
+        row = summary[name]
         kernels.append({"name": name, **KERNELS[name], "launches": launches[phase][name],
-                        "phase": phase, "max_abs_err": summary[name]["max_abs_err"],
-                        "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"],
-                        "shape": summary[name]["shape"]})
+                        "phase": phase, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                        "shape": row["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

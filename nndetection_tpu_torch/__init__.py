@@ -12,5 +12,17 @@ that runs on CPU tensors.
 
 This package imports ``torch`` and never ``jax``.
 """
+import torch
 
 __version__ = "0.1.0"
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another. Raises when a CUDA device is asked for and there is none; the
+    CPU runs only when the caller passes ``"cpu"``."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r}: no CUDA device is available "
+                           "(pass device='cpu' to run on the CPU)")
+    return dev

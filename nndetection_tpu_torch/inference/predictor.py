@@ -13,11 +13,12 @@ back to the host, where :class:`BoxEnsemblerSelective` merges them. Every
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, Optional, Sequence
+from typing import Any, Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from nndetection_tpu_torch import resolve_device
 from nndetection_tpu_torch.core.boxes.ops_np import box_axis_vector_np
 from nndetection_tpu_torch.data.patching import compute_grid, pad_to_min_shape
 from nndetection_tpu_torch.inference.ensembler import BOX_ENSEMBLERS
@@ -58,11 +59,12 @@ class Predictor:
         ensembler_parameters: Optional[Dict[str, Any]] = None,
         predict_seg: bool = False,
         ensembler: str = "BoxEnsemblerSelective",
-        device: Optional[torch.device] = None,
+        device: Union[torch.device, str] = "cuda",
     ):
-        """``device`` defaults to the current CUDA device when there is one,
-        else the CPU. ``batch_size`` is kept for the JAX signature; the tiles
-        per call follow the voxel budget."""
+        """``device`` is the card unless the caller passes another (``"cpu"``
+        for the plain versions of the kernels); without CUDA the default
+        raises. ``batch_size`` is kept for the JAX signature; the tiles per
+        call follow the voxel budget."""
         if not models:
             raise ValueError("Predictor needs at least one model")
         if predict_seg:
@@ -78,8 +80,7 @@ class Predictor:
         self.tile_detections = tile_detections
         self.ensembler_parameters = ensembler_parameters
         self.predict_seg = predict_seg
-        self.device = torch.device(
-            device if device is not None else ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = resolve_device(device)
         vox = int(np.prod(self.patch_size))
         self.tiles_per_call = min(16, max(1, _BATCH_VOXELS // (vox * len(self.tta_flips))))
         self.nets = []

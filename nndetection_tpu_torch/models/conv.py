@@ -7,7 +7,10 @@ layout and the instance-norm kernels read ``[B, S, C]`` maps without a copy.
 Convolutions are ``F.conv3d``/``F.conv_transpose3d`` (the JAX package leaves
 every default conv to XLA); the instance norm always runs through the kernels
 of :mod:`nndetection_tpu_torch.ops.instance_norm`, forward and backward, by
-way of its ``torch.autograd.Function``.
+way of its ``torch.autograd.Function``. Under ``NNDET_CONV_FUSED=1`` a
+``ConvNormAct`` whose conv and norm the JAX package fuses runs both through
+:mod:`nndetection_tpu_torch.ops.conv_in_stats` instead: the fused conv
+kernel with exact statistics, then the apply.
 
 Parameters are float32 and cast to the activation type at use, as flax does
 with ``param_dtype=float32``. Submodules carry the flax scope names
@@ -25,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from nndetection_tpu_torch.ops import conv_in_stats
 from nndetection_tpu_torch.ops.instance_norm import instance_norm
 
 Kernel = Union[int, Sequence[int]]
@@ -139,6 +143,12 @@ def in_plane_stride(ndim: int) -> Optional[int]:
     return None
 
 
+def conv_fused() -> bool:
+    """The JAX package's configuration switch of the fused conv
+    (``models/conv.py:469-485``), read at call time."""
+    return os.environ.get("NNDET_CONV_FUSED") == "1"
+
+
 class InstanceNorm(nn.Module):
     """Instance norm over the spatial axes, float32 statistics, through the
     instance-norm kernels and their ``torch.autograd.Function`` on every
@@ -183,7 +193,14 @@ class GroupNorm(nn.Module):
 
 
 class ConvNormAct(nn.Module):
-    """conv -> (norm) -> (relu); bias only when no norm follows."""
+    """conv -> (norm) -> (act); bias only when no norm follows. ``act`` is
+    ``"relu"``, ``"leaky_relu"`` (slope 0.01) or None.
+
+    Under ``NNDET_CONV_FUSED=1`` an instance-normed, untransposed conv that
+    :func:`conv_in_stats.supported` accepts runs conv and norm as one
+    :class:`~nndetection_tpu_torch.ops.conv_in_stats.ConvInstanceNormFunction`:
+    the conv in bf16 whatever the model's type, exact statistics from its
+    epilogue, the norm in the input's type. The parameters are the same."""
 
     def __init__(
         self,
@@ -209,16 +226,31 @@ class ConvNormAct(nn.Module):
             self.GroupNorm_0 = GroupNorm(out_channels, norm_channels_per_group)
         elif norm is not None:
             raise ValueError(f"unknown norm {norm}")
-        if act not in ("relu", None):
+        if act not in ("relu", "leaky_relu", None):
             raise ValueError(f"unknown act {act}")
         self.transposed, self.norm, self.act = transposed, norm, act
 
+    def _fused(self, x: torch.Tensor) -> bool:
+        return (conv_fused() and self.norm == "instance" and not self.transposed
+                and conv_in_stats.supported(
+                    (x.shape[0], *x.shape[2:], x.shape[1]), self.Conv_0.kernel_size,
+                    self.Conv_0.strides, x.dim() - 2))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.ConvTranspose_0(x) if self.transposed else self.Conv_0(x)
-        if self.norm == "instance":
-            x = self.InstanceNorm_0(x)
-        elif self.norm == "group":
-            x = self.GroupNorm_0(x)
+        if self._fused(x):
+            norm = self.InstanceNorm_0
+            x = conv_in_stats.conv_instance_norm(
+                x.permute(0, 2, 3, 4, 1), self.Conv_0.weight, norm.weight, norm.bias, norm.eps,
+                out_dtype=x.dtype,
+            ).permute(0, 4, 1, 2, 3)
+        else:
+            x = self.ConvTranspose_0(x) if self.transposed else self.Conv_0(x)
+            if self.norm == "instance":
+                x = self.InstanceNorm_0(x)
+            elif self.norm == "group":
+                x = self.GroupNorm_0(x)
         if self.act == "relu":
             x = torch.relu_(x)
+        elif self.act == "leaky_relu":
+            x = F.leaky_relu_(x, 0.01)
         return x

@@ -31,11 +31,12 @@ import resource
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from nndetection_tpu_torch import resolve_device
 from nndetection_tpu_torch.models.conv import Conv, ConvTranspose
 from nndetection_tpu_torch.models.retina_unet import (
     RetinaUNet,
@@ -134,20 +135,21 @@ class Trainer:
         self,
         model_cfg: RetinaUNetConfig,
         trainer_cfg: TrainerConfig,
-        device: torch.device,
+        device: Union[torch.device, str] = "cuda",
         output_dir: Optional[Path] = None,
         augment_cfg: Any = None,
     ):
         """Batches carry ``images [B, *patch, C]``, ``gt_boxes``,
         ``gt_classes``, ``gt_mask`` and ``seg``
         (:func:`nndetection_tpu_torch.data.gt_prep.prepare_targets` makes
-        them from instance segmentations)."""
+        them from instance segmentations). ``device`` is the card unless the
+        caller passes another (``"cpu"``); without CUDA the default raises."""
         if augment_cfg is not None:
             raise NotImplementedError(
                 "on-device augmentation is not ported yet (ROADMAP.md, queue 1 item 4)")
         self.cfg = model_cfg
         self.tcfg = trainer_cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.output_dir = Path(output_dir) if output_dir else None
         self.schedule = lr_schedule(trainer_cfg)
         anchors_np, self.anchors_per_level = model_cfg.anchors()

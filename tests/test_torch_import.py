@@ -41,6 +41,7 @@ SLICE_MODULES = [
     "nndetection_tpu_torch.models.retina_unet",
     "nndetection_tpu_torch.ops",
     "nndetection_tpu_torch.ops._build",
+    "nndetection_tpu_torch.ops.conv_in_stats",
     "nndetection_tpu_torch.ops.instance_norm",
     "nndetection_tpu_torch.ops.nms",
     "nndetection_tpu_torch.train",
