@@ -8,15 +8,18 @@ Phases, each printing its findings:
    CUDA, never falls back to the CPU;
 2. build: compiles the CUDA kernels from ``nndetection_tpu_torch/csrc`` into
    the git-ignored ``nndetection_tpu_torch/_build`` and loads them;
-3. kernels: every kernel of the serving and train paths against its plain
-   PyTorch version on the card, at the shapes of those paths (instance-norm
-   statistics, apply, gradient sums and input gradient at the LUNA plan's
-   stage shapes, bf16 and f32, exact and plane-subsampled, and at the train
-   batch's stage 0; NMS at 16 x 1000 and 2 x 10000 boxes; the fused conv +
-   statistics (#5) at every fused LUNA shape at batch 2 and stage 0b at the
-   train batch), with median times from CUDA events, the time of one
-   PyTorch call computing the same function where there is one, and the
-   bound (HBM bytes or tensor-core flops at the H100's published peaks);
+3. kernels: every kernel of the serving, train and consolidation paths
+   against its plain PyTorch version on the card, at the shapes of those
+   paths (instance-norm statistics, apply, gradient sums and input gradient
+   at the LUNA plan's stage shapes, bf16 and f32, exact and
+   plane-subsampled, and at the train batch's stage 0; NMS at 16 x 1000 and
+   2 x 10000 boxes; the fused conv + statistics (#5) at every fused LUNA
+   shape at batch 2 and stage 0b at the train batch; the IoU matrix (#6) at
+   1000 and 4096 boxes, the suppression words (#8) and the keep-scan at
+   1000 and 4096, the WBC cluster loop at 1000 boxes x 2 classes), with
+   median times from CUDA events, the time of one PyTorch call computing
+   the same function where there is one, and the bound (HBM bytes, or
+   float32 or tensor-core flops, at the H100's published peaks);
 4. reference: a tiny float32 model on the card against the same model on
    the CPU, TF32 off (forward, post-processing, whole-case prediction, and
    one ``Trainer.train_step`` with the same sampler draws on both: losses,
@@ -27,20 +30,35 @@ Phases, each printing its findings:
    initialization; every output finite;
 6. serve: ``Predictor.predict_case`` on a 140x320x320 case without TTA and a
    96x256x256 case with 8-flip TTA, each twice (first call, then warm); the
-   kernels' launch counts are reset just before and must all have risen;
+   kernels' launch counts are reset just before and must all have risen
+   (the default ensembler's WBC runs on the card: #6 and the cluster loop);
 7. train: ``Trainer.train_epoch`` on the LUNA plan at batch 8 (bf16, remat
    as the config sets it), 2 warm-up steps then 5 timed ones, on a seeded
    batch made as ``bench.py`` makes it; the launch counts are reset just
    before and all four instance-norm kernels must have run; every loss
    finite, positives matched, parameters changed;
-8. serve fused and train fused: phases 6 (the 140x320x320 case) and 7 under
+8. consolidate: the 96x256x256 8-flip case with ``BoxEnsemblerSelective``
+   and with ``BoxEnsemblerWBC``, its whole-case WBC on the card (#6 and the
+   cluster loop), then the same ensembler state consolidated again on the
+   card, with the device formulation on the CPU (the same detections, same
+   bits) and on the host in NumPy (float64), each timed;
+9. NMS mask: ``batched_nms_mask`` (#8 and the keep-scan) on the card over
+   each stream's model-level candidates of that case, equal to the CPU
+   plain version, and how many boxes it keeps otherwise than the host
+   float64 ``batched_nms_np``, with the IoU margin of each difference;
+10. sweep: ensembler states of three seeded LUNA-plan cases (patch
+   96x128x128, 8 flips) with GT made from the seed; ``BoxSweeper`` on the
+   card, then with the device formulation on the CPU (identical best
+   parameters, scores within 1e-6) and on the host path, each timed;
+11. serve fused and train fused: phases 6 (the 140x320x320 case) and 7 under
    ``NNDET_CONV_FUSED=1``, restored after; #5 must launch 7 times per model
    forward (both convs of stage 0, the second of stages 1-5), so 14 times
    per train step with remat, beside the other kernels.
 
 Then one JSON line with each kernel's route, source, launches in the phase
 that drives it (serve for NMS, train fused for #5, train for the instance
-norm), max error, times and bound, the ``nvidia-smi`` line, and last
+norm, consolidate for #6 and the cluster loop, NMS mask for #8 and the
+keep-scan), max error, times and bound, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
 non-zero and no result line is printed.
 
@@ -85,6 +103,12 @@ CONV_SHAPES = [
     ((2, 3, 4, 4, 320), 320),
 ]
 CONV_TRAIN = ((8, 96, 128, 128, 32), 32)
+# consolidation: #6 at the WBC's ensemble_topk (1000) and beyond, #8 and the
+# keep-scan at the model-level NMS's model_topk (1000) and beyond, the cluster
+# loop at 1000 boxes of 2 classes
+IOU_SIZES = (1000, 4096)
+SUPPRESSION_SIZES = (1000, 4096)
+WBC_SHAPE = (1000, 2)
 # the H100 SXM's published peaks (NVIDIA's data sheet, dense): HBM3 bytes/s,
 # bf16 tensor-core and float32 non-tensor flops/s
 PEAK_BYTES = 3.35e12
@@ -117,6 +141,13 @@ TOL = {
     # kernel's own y: same values, other summation order (tile partials,
     # then Chan's combine)
     "conv_stats": dict(rtol=1e-4, atol=1e-5),
+    # the IoU matrix: the Pallas formula's order in IEEE float32 on both
+    # sides (-fmad=false): bit-equal, at most one float32 ulp allowed
+    "iou_ulps": 1,
+    # the WBC on the card against its device formulation on the CPU: float32
+    # on both, summed in the same order (the plain cluster loop follows the
+    # kernel's); the bits agree, this is the stated bound
+    "wbc": dict(rtol=1e-5, atol=1e-6),
 }
 KERNELS = {
     "in_stats": dict(route="triton", source="nndetection_tpu_torch/ops/instance_norm.py",
@@ -131,6 +162,15 @@ KERNELS = {
                      replaces="nndetection_tpu/ops/pallas_ops.py:132"),
     "conv3d_in_stats": dict(route="cuda", source="nndetection_tpu_torch/csrc/conv3d_in_stats.cu",
                             replaces="nndetection_tpu/ops/pallas_conv.py:68"),
+    "iou_matrix": dict(route="cuda", source="nndetection_tpu_torch/csrc/iou_matrix.cu",
+                       replaces="nndetection_tpu/ops/pallas_ops.py:41"),
+    "suppression_matrix": dict(route="cuda", source="nndetection_tpu_torch/csrc/suppression_matrix.cu",
+                               replaces="nndetection_tpu/ops/pallas_ops.py:237"),
+    # not TPU kernels: the loops JAX compiles into one device program
+    "nms_keep_scan": dict(route="cuda", source="nndetection_tpu_torch/csrc/suppression_matrix.cu",
+                          replaces="nndetection_tpu/core/boxes/nms.py:142"),
+    "wbc_cluster": dict(route="cuda", source="nndetection_tpu_torch/csrc/wbc_cluster.cu",
+                        replaces="nndetection_tpu/core/boxes/wbc.py:61"),
 }
 
 
@@ -287,7 +327,8 @@ def _grad_kernels(x4, dy4, gamma, start, step, reps):
 
 
 def phase_kernels(device, stages=LUNA_STAGES, nms_shapes=NMS_SHAPES, train_stage0=TRAIN_STAGE0,
-                  conv_shapes=CONV_SHAPES, conv_train=CONV_TRAIN, reps=20):
+                  conv_shapes=CONV_SHAPES, conv_train=CONV_TRAIN, iou_sizes=IOU_SIZES,
+                  suppression_sizes=SUPPRESSION_SIZES, wbc_shape=WBC_SHAPE, reps=20):
     """Each kernel against its plain version; returns per-kernel max error
     and the times at the main path's representative shape (stage 0, bf16,
     the default plane_sub:8 schedule for IN, at batch 2 for the forward and
@@ -399,6 +440,7 @@ def phase_kernels(device, stages=LUNA_STAGES, nms_shapes=NMS_SHAPES, train_stage
                 **bound(nbytes(boxes, scores) + n_img * max_out * 5, steps * n * 26, PEAK_F32))
     log(f"[kernels] took {time.perf_counter() - t0:.1f} s so far")
     summary["conv3d_in_stats"].update(conv_kernel_checks(device, conv_shapes, conv_train))
+    summary.update(consolidation_kernel_checks(device, iou_sizes, suppression_sizes, wbc_shape, reps))
     return summary
 
 
@@ -448,6 +490,116 @@ def conv_kernel_checks(device, shapes=CONV_SHAPES, train=CONV_TRAIN, reps=10) ->
                        shape=f"{list(xs)} bf16 -> {co}", **b)
         del x, y
     out["max_abs_err"] = err
+    return out
+
+
+def clumped_boxes(rng, n, extent=300.0):
+    """``n`` seeded boxes ``[n, 6]`` float32 in clumps of ~6 around random
+    centres, as detections of one object from several tiles and flips."""
+    ctr = rng.uniform(20, extent - 20, (max(n // 6, 1), 3))[rng.randint(0, max(n // 6, 1), n)]
+    ctr = ctr + rng.uniform(-2, 2, (n, 3))
+    half = rng.uniform(2, 12, (n, 3))
+    lo, hi = ctr - half, ctr + half
+    return np.stack([lo[:, 0], lo[:, 1], hi[:, 0], hi[:, 1], lo[:, 2], hi[:, 2]], 1).astype(np.float32)
+
+
+def consolidation_kernel_checks(device, iou_sizes=IOU_SIZES, suppression_sizes=SUPPRESSION_SIZES,
+                                wbc_shape=WBC_SHAPE, reps=20) -> dict:
+    """#6, #8, the keep-scan and the WBC cluster loop against their plain
+    versions on the card; the summary of each is its first shape."""
+    from nndetection_tpu_torch.ops.iou_matrix import iou_matrix, iou_matrix_plain
+    from nndetection_tpu_torch.ops.suppression import (
+        nms_keep_scan, nms_keep_scan_plain, num_words, suppression_matrix,
+        suppression_matrix_plain)
+    from nndetection_tpu_torch.ops.wbc_cluster import wbc_cluster, wbc_cluster_plain
+
+    rng = np.random.RandomState(3)
+    out = {}
+
+    def note(name, err, **row):
+        if name not in out:
+            out[name] = dict(row, max_abs_err=err)
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+
+    for n in iou_sizes:
+        b = torch.from_numpy(clumped_boxes(rng, n)).to(device)
+        got, want = iou_matrix(b, b), iou_matrix_plain(b, b)
+        ulps = int((got.view(torch.int32) - want.view(torch.int32)).abs().max())
+        if ulps > TOL["iou_ulps"]:
+            raise AssertionError(f"iou_matrix {n}x{n}: {ulps} float32 ulps from the plain version")
+        err = float((got - want).abs().max())
+        ms = median_ms(lambda: iou_matrix(b, b), reps)
+        plain_ms = median_ms(lambda: iou_matrix_plain(b, b), reps)
+        # boxes read once, the matrix written once; ~26 float32 operations per pair
+        bnd = bound(nbytes(b, b, got), 26 * n * n, PEAK_F32)
+        log(f"[kernels] iou_matrix {n}x{n}: {ulps} ulps, {ms:.4f} ms (plain {plain_ms:.4f}), "
+            f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        note("iou_matrix", err, ms=ms, plain_ms=plain_ms, library_ms=None,
+             shape=f"{n} x {n} boxes", **bnd)
+        del got, want
+
+    thr = 0.1  # the model-level NMS's default model_iou
+    for n in suppression_sizes:
+        b = torch.from_numpy(clumped_boxes(rng, n)).to(device)
+        valid = torch.from_numpy(rng.rand(n) > 0.1).to(device)
+        words, pwords = suppression_matrix(b, thr), suppression_matrix_plain(b, thr)
+        if not torch.equal(words, pwords):
+            raise AssertionError(f"suppression_matrix {n}: words differ from the plain version")
+        keep, pkeep = nms_keep_scan(words, valid), nms_keep_scan_plain(pwords, valid)
+        if not torch.equal(keep, pkeep):
+            raise AssertionError(f"nms_keep_scan {n}: keep flags differ from the plain version")
+        times = {
+            "suppression_matrix": median_ms(lambda: suppression_matrix(b, thr), reps),
+            "suppression_matrix_plain": median_ms(lambda: suppression_matrix_plain(b, thr), reps),
+            "nms_keep_scan": median_ms(lambda: nms_keep_scan(words, valid), reps),
+            "nms_keep_scan_plain": median_ms(lambda: nms_keep_scan_plain(words, valid), 3, 1),
+        }
+        # #8: boxes read once, the words written once, ~26 operations per
+        # pair above the diagonal; the keep-scan: each kept row's words from
+        # its own on (the rest of its row is zero), the flags read and
+        # written, one OR per word read
+        kept = torch.nonzero(keep).flatten().cpu()
+        words_read = int((num_words(n) - kept // 64).sum())
+        b_sup = bound(nbytes(b, words), 26 * n * (n - 1) // 2, PEAK_F32)
+        b_scan = bound(8 * words_read + 2 * n, words_read, PEAK_F32)
+        log(f"[kernels] suppression_matrix {n} boxes thr {thr}: words identical, "
+            f"{times['suppression_matrix']:.4f} ms (plain {times['suppression_matrix_plain']:.4f}), "
+            f"bound {b_sup['bound_ms']:.4f} ms | nms_keep_scan: {len(kept)} kept, identical, "
+            f"{times['nms_keep_scan']:.4f} ms (plain {times['nms_keep_scan_plain']:.4f}), "
+            f"bound {b_scan['bound_ms']:.5f} ms ({b_scan['bound_by']})")
+        for k, bnd in (("suppression_matrix", b_sup), ("nms_keep_scan", b_scan)):
+            note(k, 0.0, ms=times[k], plain_ms=times[k + "_plain"], library_ms=None,
+                 shape=f"{n} boxes, {len(kept)} kept" if k == "nms_keep_scan" else f"{n} boxes",
+                 **bnd)
+
+    n, classes = wbc_shape
+    b = torch.from_numpy(clumped_boxes(rng, n)).to(device)
+    scores = torch.from_numpy(rng.rand(n).astype(np.float32)).to(device)
+    weights = torch.from_numpy((0.5 + rng.rand(n)).astype(np.float32)).to(device)
+    n_exp = torch.from_numpy(rng.randint(1, 9, n).astype(np.float32)).to(device)
+    labels = torch.from_numpy(rng.randint(0, classes, n).astype(np.int32)).to(device)
+    valid = torch.ones(n, dtype=torch.bool, device=device)
+    ious = iou_matrix(b, b)
+    args = (ious, b, scores, weights, n_exp, labels, valid, classes, 0.5)
+    got, want = wbc_cluster(*args, 0.0), wbc_cluster_plain(*args, 0.0)
+    if not torch.equal(got[2], want[2]):
+        raise AssertionError("wbc_cluster: clusters differ from the plain version")
+    err = max(check_close("wbc_cluster scores", got[1], want[1], **TOL["wbc"]),
+              check_close("wbc_cluster boxes", got[0], want[0], **TOL["wbc"]))
+    # every cluster the loop forms, emitted or not: all are emitted above -inf
+    seeds = int(wbc_cluster(*args, float("-inf"))[2].sum())
+    ms = median_ms(lambda: wbc_cluster(*args, 0.0), reps)
+    plain_ms = median_ms(lambda: wbc_cluster_plain(*args, 0.0), 3, 1)
+    # the seeds' IoU rows and the per-box inputs read once, the outputs
+    # written once; per cluster an arg-max and a membership test over the N
+    # boxes, ~12 operations per box for the sums
+    bnd = bound(4 * seeds * n + nbytes(b, scores, weights, n_exp, labels, valid, *got),
+                seeds * 2 * n + 12 * n, PEAK_F32)
+    log(f"[kernels] wbc_cluster {n} boxes x {classes} classes: {seeds} clusters, "
+        f"{int(got[2].sum())} emitted, max abs err {err:.2e}, {ms:.4f} ms (plain {plain_ms:.4f}), "
+        f"bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']})")
+    note("wbc_cluster", err, ms=ms, plain_ms=plain_ms, library_ms=None,
+         shape=f"{n} boxes x {classes} classes, {seeds} clusters", **bnd)
     return out
 
 
@@ -715,7 +867,9 @@ def phase_forward(device, patch=(96, 128, 128), batch=2) -> None:
         + f"; {ms:.2f} ms per forward (median of 5)")
 
 
-SERVE_KERNELS = ("in_stats", "in_apply", "nms_topk")
+SERVE_KERNELS = ("in_stats", "in_apply", "nms_topk", "iou_matrix", "wbc_cluster")
+CONSOLIDATE_KERNELS = ("iou_matrix", "wbc_cluster")
+NMS_MASK_KERNELS = ("suppression_matrix", "nms_keep_scan")
 TRAIN_KERNELS = ("in_stats", "in_apply", "in_grad_stats", "in_grad_input")
 # conv3d_in_stats launches per forward of the LUNA plan under
 # NNDET_CONV_FUSED=1: both convs of stage 0 and the second conv of stages
@@ -767,6 +921,242 @@ def phase_serve(device, cases=(((140, 320, 320), False), ((96, 256, 256), True))
         raise AssertionError(f"{label}: kernels never launched on the main path: {missing}")
     log(f"[{label}] kernel launches during {label}: {launches}, {forwards} model forwards")
     return launches, forwards
+
+
+def _consolidate(ens, device, device_wbc, fresh=True):
+    """``ens.get_case_result()`` with its WBC on ``device`` as ``device_wbc``
+    selects, timed on the host clock; ``fresh`` empties the memo caches
+    first, so that the model-level NMS runs too."""
+    import nndetection_tpu_torch.inference.ensembler as ensembler
+
+    old = ens.device, ensembler.DEVICE_WBC
+    ens.device, ensembler.DEVICE_WBC = device, device_wbc
+    try:
+        if fresh:
+            ens._concat_cache.clear()
+            ens._model_post_cache.clear()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ens.get_case_result()
+        return res, time.perf_counter() - t0
+    finally:
+        ens.device, ensembler.DEVICE_WBC = old
+
+
+def _check_detections(label, res, shape):
+    boxes, scores = res["pred_boxes"], res["pred_scores"]
+    if not len(scores):
+        raise AssertionError(f"{label}: no detections")
+    if not (np.isfinite(boxes).all() and np.isfinite(scores).all()):
+        raise AssertionError(f"{label}: non-finite detections")
+    if (boxes[:, [0, 1, 4]] < -1e-3).any() or (boxes[:, [2, 3, 5]] > np.asarray(shape) + 1e-3).any():
+        raise AssertionError(f"{label}: boxes outside the case")
+
+
+def paired_max_err(label, got, want, rtol, atol) -> float:
+    """Max abs error of two case results as sets of detections: each of
+    ``got`` paired with the nearest of ``want`` (scores, boxes, labels), one
+    to one, every pair within ``atol + rtol * |want|``. Equal scores may
+    list their detections in another order."""
+    def rows(r):
+        return np.concatenate([r["pred_boxes"], r["pred_scores"][:, None],
+                               r["pred_labels"][:, None].astype(np.float64)], 1)
+
+    a, b = rows(got), rows(want)
+    diff = np.abs(a[:, None] - b[None])
+    ratio = (diff / (atol + rtol * np.abs(b)[None])).max(-1)
+    nearest = ratio.argmin(1)
+    if len(a) != len(b) or sorted(nearest.tolist()) != list(range(len(b))):
+        raise AssertionError(f"{label}: {len(a)} and {len(b)} detections do not pair one to one")
+    worst = ratio[np.arange(len(a)), nearest].max() if len(a) else 0.0
+    if worst > 1:
+        raise AssertionError(f"{label}: a detection beyond rtol={rtol} atol={atol} ({worst:.2f}x)")
+    return float(diff[np.arange(len(a)), nearest].max()) if len(a) else 0.0
+
+
+def phase_consolidate(device, shape=(96, 256, 256), patch=(96, 128, 128), tta=True,
+                      names=("BoxEnsemblerSelective", "BoxEnsemblerWBC")):
+    """The 8-flip case through ``predict_case`` with each ensembler (first
+    call, then a warm one, timed), its WBC on the card; then the same
+    ensembler state consolidated on the card, with the device formulation on
+    the CPU and on the host in NumPy. Returns the launches of the warm calls
+    and the ensemblers."""
+    from nndetection_tpu_torch.inference.predictor import ModelBundle, Predictor
+    from nndetection_tpu_torch.models.retina_unet import RetinaUNet
+    from nndetection_tpu_torch.ops import LAUNCHES
+
+    cfg = luna_cfg(patch)
+    params = RetinaUNet(cfg, torch.Generator().manual_seed(0)).state_dict()
+    case = np.random.RandomState(5).standard_normal((1, *shape)).astype(np.float32)
+    cpu = torch.device("cpu")
+    launches, ensemblers = {}, {}
+    for name in names:
+        predictor = Predictor([ModelBundle(cfg=cfg, params=params, name="luna")], tta=tta,
+                              ensembler=name, device=device)
+        predictor.predict_case(case)
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res = predictor.predict_case(case)
+        torch.cuda.synchronize()
+        case_s = time.perf_counter() - t0
+        for k, v in LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        ens = ensemblers[name] = res["ensembler"]
+        _check_detections(f"consolidate {name}", res, shape)
+        card, t_card = _consolidate(ens, device, "auto")
+        _, t_card_ens = _consolidate(ens, device, "auto", fresh=False)
+        dev_cpu, t_cpu = _consolidate(ens, cpu, True)
+        host, t_host = _consolidate(ens, cpu, False)
+        n = len(card["pred_scores"])
+        if n != len(res["pred_scores"]) or n != len(dev_cpu["pred_scores"]):
+            raise AssertionError(f"consolidate {name}: {n} detections consolidated again on the "
+                                 f"card, {len(res['pred_scores'])} in the case, "
+                                 f"{len(dev_cpu['pred_scores'])} on the CPU")
+        err = paired_max_err(f"consolidate {name}", card, dev_cpu, **TOL["wbc"])
+        log(f"[consolidate] {name}, case {shape} tta={tta}: warm case {case_s:.4f} s, "
+            f"{n} detections; consolidation on the card {t_card:.4f} s "
+            f"({t_card_ens:.4f} s again with the model-level NMS memoized), device "
+            f"formulation on the CPU {t_cpu:.4f} s (card vs CPU max abs err {err:.2e}), host "
+            f"NumPy {t_host:.4f} s ({len(host['pred_scores'])} detections, float64)")
+    missing = [k for k in CONSOLIDATE_KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"consolidate: kernels never launched on the main path: {missing}")
+    log(f"[consolidate] kernel launches during the warm cases: {launches}")
+    return launches, ensemblers
+
+
+def phase_nms_mask(device, ens, reps=10):
+    """``batched_nms_mask`` (#8 and the keep-scan) over each stream's
+    model-level candidates (top-k, clip, remove-small, score threshold),
+    ranked by score x weight as the model-level weighted NMS ranks them: on
+    the card, equal to the CPU plain version; differences from the host
+    float64 ``batched_nms_np`` counted with their IoU margins."""
+    from nndetection_tpu_torch.core.boxes.nms import batched_nms_mask
+    from nndetection_tpu_torch.core.boxes.ops_np import batched_nms_np, box_iou_np
+    from nndetection_tpu_torch.ops import LAUNCHES
+
+    thr = ens.parameters["model_iou"]
+    streams = []
+    for name in ens.model_results:
+        boxes, probs, labels, weights = ens.model_candidates(name)
+        if len(boxes):
+            streams.append((boxes.astype(np.float32), (probs * weights).astype(np.float32),
+                            labels.astype(np.int64)))
+    if not streams:
+        raise AssertionError("nms mask: no candidates")
+    LAUNCHES.clear()
+    n_boxes = n_kept = 0
+    margins = []
+    for boxes, ranked, labels in streams:
+        args = [torch.from_numpy(a) for a in (boxes, ranked, labels)] + [
+            torch.ones(len(boxes), dtype=torch.bool)]
+        keep = batched_nms_mask(*(a.to(device) for a in args), thr).cpu().numpy()
+        want = batched_nms_mask(*args, thr).numpy()
+        if not np.array_equal(keep, want):
+            raise AssertionError(f"nms mask: {int((keep != want).sum())} keep flags differ "
+                                 "between the card and the CPU plain version")
+        host = np.zeros(len(boxes), bool)
+        host[batched_nms_np(boxes, ranked, labels, thr)] = True
+        n_boxes += len(boxes)
+        n_kept += int(keep.sum())
+        order = np.argsort(-ranked, kind="stable")
+        rank = np.empty(len(order), int)
+        rank[order] = np.arange(len(order))
+        iou = box_iou_np(boxes, boxes)
+        for j in np.nonzero(keep != host)[0]:
+            before = (rank < rank[j]) & (labels == labels[j])
+            margins.append(float(np.abs(iou[j, before] - thr).min()) if before.any() else float("nan"))
+    launches = dict(LAUNCHES)
+    missing = [k for k in NMS_MASK_KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"nms mask: kernels never launched on the main path: {missing}")
+    boxes, ranked, labels = streams[0]
+    args = [torch.from_numpy(a).to(device) for a in (boxes, ranked, labels)] + [
+        torch.ones(len(boxes), dtype=torch.bool, device=device)]
+    ms = median_ms(lambda: batched_nms_mask(*args, thr), reps)
+    log(f"[nms mask] {len(streams)} streams, {n_boxes} candidates, thr {thr}: keep masks on the "
+        f"card equal the CPU plain version's, {n_kept} kept; {len(margins)} differ from the host "
+        f"float64 batched_nms_np" + (f" (IoU margins {', '.join(f'{m:.2e}' for m in margins)})"
+                                     if margins else "")
+        + f"; {ms:.4f} ms per stream of {len(boxes)} on the card (sort, #8, keep-scan); "
+        f"launches {launches}")
+    return launches
+
+
+def phase_sweep(device, n_cases=3, shape=(96, 128, 128), patch=(96, 128, 128), tta=True):
+    """``BoxSweeper`` over the ensembler states of seeded LUNA-plan cases,
+    with GT boxes made from the seed (jittered top detections of the case
+    and a random box): on the card, then with the device formulation on the
+    CPU (identical best parameters, scores within 1e-6) and on the host."""
+    import tempfile
+    from pathlib import Path
+
+    import nndetection_tpu_torch.inference.ensembler as ensembler
+    from nndetection_tpu_torch.inference.predictor import ModelBundle, Predictor
+    from nndetection_tpu_torch.inference.sweeper import BoxSweeper
+    from nndetection_tpu_torch.models.retina_unet import RetinaUNet
+    from nndetection_tpu_torch.ops import LAUNCHES
+
+    cfg = luna_cfg(patch)
+    params = RetinaUNet(cfg, torch.Generator().manual_seed(0)).state_dict()
+    predictor = Predictor([ModelBundle(cfg=cfg, params=params, name="luna")], tta=tta,
+                          device=device)
+    rng = np.random.RandomState(7)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        states = Path(tmp)
+        for i in range(n_cases):
+            res = predictor.predict_case(rng.standard_normal((1, *shape)).astype(np.float32))
+            res["ensembler"].save_state(states, f"case_{i}")
+            # three of the 30 best detections, jittered: hits the sweep can rank up
+            pb = res["pred_boxes"][:30]
+            pick = rng.choice(len(pb), min(3, len(pb)), replace=False)
+            gt = np.concatenate([pb[pick] + rng.uniform(-3, 3, (len(pick), 6)),
+                                 clumped_boxes(rng, 1, min(shape))])
+            gt[:, [2, 3, 5]] = np.maximum(gt[:, [2, 3, 5]], gt[:, [0, 1, 4]] + 1)
+            np.savez(states / f"case_{i}_boxes_gt.npz", boxes=gt.astype(np.float32),
+                     classes=np.zeros(len(gt), np.int64))
+        for label, dev, device_wbc in (("card", device, "auto"), ("CPU device formulation",
+                                       torch.device("cpu"), True), ("host NumPy", torch.device("cpu"), False)):
+            ensembler.DEVICE_WBC = device_wbc
+            try:
+                sweeper = BoxSweeper(["nodule"], states, states, save_dir=states / label.split()[0],
+                                     device=dev)
+                trials = []
+                evaluate = sweeper._evaluate_params
+                sweeper._evaluate_params = lambda p: trials.append(p) or evaluate(p)
+                LAUNCHES.clear()
+                t0 = time.perf_counter()
+                plan = sweeper.run_postprocessing_sweep()
+                seconds = time.perf_counter() - t0
+            finally:
+                ensembler.DEVICE_WBC = "auto"
+            runs[label] = dict(plan=plan, seconds=seconds, trials=len(trials),
+                               launches=dict(LAUNCHES))
+            if not (states / label.split()[0] / "sweep_results.json").exists():
+                raise AssertionError(f"sweep {label}: no sweep_results.json")
+    card, cpu, host = runs["card"], runs["CPU device formulation"], runs["host NumPy"]
+    missing = [k for k in CONSOLIDATE_KERNELS if card["launches"].get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"sweep: kernels never launched on the card: {missing}")
+    if card["plan"]["parameters"] != cpu["plan"]["parameters"]:
+        raise AssertionError(f"sweep: best parameters differ, card {card['plan']['parameters']}, "
+                             f"CPU {cpu['plan']['parameters']}")
+    if not abs(card["plan"]["score"] - cpu["plan"]["score"]) <= 1e-6:
+        raise AssertionError(f"sweep: score {card['plan']['score']} on the card, "
+                             f"{cpu['plan']['score']} on the CPU")
+    changed = {k: v for k, v in card["plan"]["parameters"].items()
+               if v != ensembler.BoxEnsemblerSelective.get_default_parameters()[k]}
+    for label, r in runs.items():
+        log(f"[sweep] {label}: {r['seconds']:.3f} s per sweep, {r['trials']} trials x {n_cases} "
+            f"cases, {r['seconds'] / r['trials']:.4f} s per trial, best score "
+            f"{r['plan']['score']:.6f}" + (f", launches {r['launches']}" if r["launches"] else ""))
+    log(f"[sweep] best parameters identical on the card and the CPU; changed from the defaults: "
+        f"{changed}; host NumPy path {'agrees' if host['plan'] == card['plan'] else 'differs'} "
+        f"(score {host['plan']['score']:.6f})")
+    return card["launches"]
 
 
 def phase_serve_fused(device, cases=(((140, 320, 320), False),), patch=(96, 128, 128)):
@@ -888,13 +1278,19 @@ def main() -> None:
     phase_reference_fused(device)
     phase_forward(device)
     launches = {"serve": phase_serve(device)[0]}
+    launches["consolidate"], ensemblers = phase_consolidate(device)
+    launches["nms mask"] = phase_nms_mask(device, ensemblers["BoxEnsemblerSelective"])
+    launches["sweep"] = phase_sweep(device)
     train = phase_train(device, profile_dir=profile_dir)
     launches["train"] = train["launches"]
     launches["serve fused"] = phase_serve_fused(device)
     launches["train fused"] = phase_train_fused(device, train)["launches"]
     # each kernel's launches in the phase that drives it: NMS in serving,
-    # the instance norm in training, #5 in the fused training
-    phases = {"nms_topk": "serve", "conv3d_in_stats": "train fused"}
+    # the instance norm in training, #5 in the fused training, #6 and the
+    # cluster loop in the consolidation, #8 and the keep-scan in the NMS mask
+    phases = {"nms_topk": "serve", "conv3d_in_stats": "train fused",
+              "iou_matrix": "consolidate", "wbc_cluster": "consolidate",
+              "suppression_matrix": "nms mask", "nms_keep_scan": "nms mask"}
     kernels = []
     for name in KERNELS:
         phase = phases.get(name, "train")

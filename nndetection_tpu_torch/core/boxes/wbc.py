@@ -1,17 +1,93 @@
-"""Weighted box clustering on the host (copy of the NumPy half of
+"""Weighted box clustering (counterpart of
 :mod:`nndetection_tpu.core.boxes.wbc`).
 
 Greedy clustering from the highest-scoring box: each cluster becomes one
 score-weighted average box, with a score dampened by the number of *missing*
 expected predictions.
+
+:func:`wbc` and :func:`batched_wbc` are the device formulation, float32 with
+outputs padded to ``[N]`` per class and a validity mask: the IoU matrix comes
+from :func:`nndetection_tpu_torch.ops.iou_matrix.iou_matrix` (kernel #6) and
+the cluster loop from :func:`nndetection_tpu_torch.ops.wbc_cluster.wbc_cluster`.
+:func:`wbc_np` and :func:`batched_wbc_np` are the host NumPy copy, float64.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+import torch
 
+from nndetection_tpu_torch.core.boxes.ops import box_size, prod_last
 from nndetection_tpu_torch.core.boxes.ops_np import box_area_np, box_iou_np
+from nndetection_tpu_torch.ops.iou_matrix import iou_matrix
+from nndetection_tpu_torch.ops.wbc_cluster import wbc_cluster
+
+
+def batched_wbc(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    labels: torch.Tensor,
+    weights: torch.Tensor,
+    n_exp_preds: torch.Tensor,
+    valid: torch.Tensor,
+    iou_thresh: float,
+    score_thresh: float = 0.0,
+    use_area: bool = False,
+    missing_weight: float = 1.0,
+    num_classes: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-class weighted box clustering on the device of the inputs.
+
+    Args:
+        boxes: ``[N, 6]``
+        scores, weights, n_exp_preds: ``[N]``
+        labels: ``[N]`` integer classes; class ``c`` in ``0..num_classes-1``
+            clusters the valid boxes of label ``c``
+        valid: ``[N]`` bool
+        iou_thresh: boxes with IoU > thresh w.r.t. the cluster seed join it
+        score_thresh: clusters with consolidated score <= thresh are dropped
+        use_area: multiply weights by box volume
+        missing_weight: dampening weight for missing predictions
+
+    Returns ``(boxes [C*N, 6], scores [C*N], labels [C*N], valid [C*N])``,
+    class-major, each class's clusters in the order they formed.
+    """
+    n = boxes.shape[0]
+    boxes32 = boxes.float().contiguous()
+    w = weights.float()
+    if use_area:
+        w = w * prod_last(box_size(boxes32))
+    ob, os_, ov = wbc_cluster(
+        iou_matrix(boxes32, boxes32), boxes32, scores.float().contiguous(), w.contiguous(),
+        n_exp_preds.float().contiguous(), labels.to(torch.int32).contiguous(),
+        valid.bool().contiguous(), num_classes, iou_thresh, score_thresh, missing_weight)
+    out_labels = torch.arange(num_classes, dtype=torch.int32, device=boxes.device)
+    return (ob.reshape(num_classes * n, 6), os_.reshape(-1),
+            out_labels.repeat_interleave(n), ov.reshape(-1))
+
+
+def wbc(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    weights: torch.Tensor,
+    n_exp_preds: torch.Tensor,
+    valid: torch.Tensor,
+    iou_thresh: float,
+    score_thresh: float = 0.0,
+    use_area: bool = False,
+    missing_weight: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-class weighted box clustering on the device of the inputs.
+
+    Arguments as :func:`batched_wbc` without labels. Returns
+    ``(boxes [N, 6], scores [N], valid [N])``, clusters in the order they
+    formed (descending seed score), padded.
+    """
+    labels = torch.zeros(boxes.shape[0], dtype=torch.int32, device=boxes.device)
+    b, s, _, v = batched_wbc(boxes, scores, labels, weights, n_exp_preds, valid, iou_thresh,
+                             score_thresh, use_area, missing_weight, num_classes=1)
+    return b, s, v
 
 
 def wbc_np(

@@ -7,8 +7,10 @@ The padded case goes to the device once; tiles are cut there in batches of
 device, run through the model as one batch, post-processed together (one NMS
 launch for every tile x flip) and their boxes inverted back to tile
 coordinates on the device; only the small fixed-size detection arrays come
-back to the host, where :class:`BoxEnsemblerSelective` merges them. Every
-(model x flip) is a separate ensembler stream, as in the JAX package.
+back to the host, where the box ensembler named by ``ensembler`` (any name
+of :data:`BOX_ENSEMBLERS`) merges them. Every (model x flip) is a separate
+ensembler stream, as in the JAX package. The ensembler gets the predictor's
+device: on the card its whole-case weighted box clustering runs there.
 """
 from __future__ import annotations
 
@@ -123,7 +125,8 @@ class Predictor:
         case_shape = padded.shape[1:]
         grid = compute_grid(case_shape, self.patch_size, self.overlap)
         box_ens = self.ensembler_cls(
-            case_shape, parameters=self.ensembler_parameters, properties=properties)
+            case_shape, parameters=self.ensembler_parameters, properties=properties,
+            device=self.device)
 
         # the case goes to the device once, in bfloat16 as the JAX predictor
         # sends its tiles; tiles are cut there, channel-last

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA C++ kernels.
 
-On first use, ``nvcc`` compiles every ``csrc/*.cu`` of this package into one
-shared library with a plain C interface, under ``_build/`` (git-ignored), and
+On first use, ``nvcc`` compiles every ``csrc/*.cu`` of this package, one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, under ``_build/`` (git-ignored);
 ``ctypes`` loads it. The library's file name carries a hash of the sources and
 flags, so an edited source is rebuilt and a current one is reused. Callers
 bind each entry point with explicit ``argtypes``; every entry point returns
@@ -29,7 +30,7 @@ NVCC_FLAGS = (
     # the plain PyTorch version does, so that selected indices are identical
     "-fmad=false",
     "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 # the compiler's output of the last build (registers, shared memory and
@@ -67,19 +68,32 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a temporary name and rename: concurrent builders never load
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    BUILD_LOG.write_text(proc.stdout + proc.stderr)
+    # compile and link in a private directory and rename the library:
+    # concurrent builds never load a half-written one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        nvcc = _nvcc()
+        procs = []
+        for src in _sources():
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(Path(tmp) / f"{src.stem}.o")]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        logs = []
+        for cmd, proc in procs:
+            log = proc.communicate()[0]
+            logs.append(log)
+            if proc.returncode != 0:
+                for _, other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        lib = Path(tmp) / out.name
+        cmd = [nvcc, "-shared", "-o", str(lib), *(c[-1] for c, _ in procs)]
+        link = subprocess.run(cmd, capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}): {' '.join(cmd)}\n"
+                               f"{link.stdout}{link.stderr}")
+        os.replace(lib, out)
+    BUILD_LOG.write_text("".join(logs))
     return out
 
 

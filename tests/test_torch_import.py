@@ -1,5 +1,5 @@
-"""The PyTorch port imports without JAX or flax, and no file of it imports
-them."""
+"""The PyTorch port imports without JAX, flax, scikit-learn or the JAX
+package, and no file of it imports them."""
 import re
 import subprocess
 import sys
@@ -26,10 +26,17 @@ SLICE_MODULES = [
     "nndetection_tpu_torch.data.gt_prep",
     "nndetection_tpu_torch.data.instances",
     "nndetection_tpu_torch.data.patching",
+    "nndetection_tpu_torch.evaluator",
+    "nndetection_tpu_torch.evaluator.coco",
+    "nndetection_tpu_torch.evaluator.det",
+    "nndetection_tpu_torch.evaluator.froc",
+    "nndetection_tpu_torch.evaluator.hist",
+    "nndetection_tpu_torch.evaluator.matching",
     "nndetection_tpu_torch.inference",
     "nndetection_tpu_torch.inference.ensembler",
     "nndetection_tpu_torch.inference.predictor",
     "nndetection_tpu_torch.inference.restore",
+    "nndetection_tpu_torch.inference.sweeper",
     "nndetection_tpu_torch.inference.tta",
     "nndetection_tpu_torch.losses",
     "nndetection_tpu_torch.models",
@@ -43,10 +50,15 @@ SLICE_MODULES = [
     "nndetection_tpu_torch.ops._build",
     "nndetection_tpu_torch.ops.conv_in_stats",
     "nndetection_tpu_torch.ops.instance_norm",
+    "nndetection_tpu_torch.ops.iou_matrix",
     "nndetection_tpu_torch.ops.nms",
+    "nndetection_tpu_torch.ops.suppression",
+    "nndetection_tpu_torch.ops.wbc_cluster",
     "nndetection_tpu_torch.train",
     "nndetection_tpu_torch.train.lr",
     "nndetection_tpu_torch.train.trainer",
+    "nndetection_tpu_torch.utils",
+    "nndetection_tpu_torch.utils.io",
 ]
 
 
@@ -61,12 +73,14 @@ def test_every_module_is_listed():
 def test_imports_with_jax_and_flax_blocked():
     code = (
         "import sys\n"
-        "for name in ('jax', 'jax.numpy', 'flax', 'flax.linen', 'triton'):\n"
+        "for name in ('jax', 'jax.numpy', 'flax', 'flax.linen', 'triton', 'sklearn',\n"
+        "             'sklearn.metrics', 'nndetection_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "assert not any(k == 'jax' or k.startswith(('jax.', 'flax')) "
+        "assert not any(k in ('jax', 'sklearn', 'nndetection_tpu') "
+        "or k.startswith(('jax.', 'flax', 'sklearn.', 'nndetection_tpu.')) "
         "for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
     )
@@ -77,6 +91,6 @@ def test_imports_with_jax_and_flax_blocked():
 
 
 def test_no_source_imports_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|jaxlib|nndetection_tpu)\b", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|jaxlib|nndetection_tpu|sklearn)\b", re.M)
     offenders = [str(p) for p in PKG.rglob("*.py") if pattern.search(p.read_text())]
     assert offenders == []

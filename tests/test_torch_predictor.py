@@ -81,6 +81,36 @@ def test_predict_case_matches_jax(monkeypatch, tta_on, scale):
     np.testing.assert_allclose(got["pred_boxes"], want["pred_boxes"], rtol=0, atol=CASE_TOL)
 
 
+@pytest.mark.parametrize("ensembler", ["BoxEnsemblerWBC", "BoxEnsemblerFastest"])
+def test_predict_case_with_wbc_ensemblers_matches_jax(monkeypatch, ensembler):
+    """The classic WBC ensemblers through ``predict_case`` (8-flip TTA, the
+    scaled classifier): the port's ensembler gets the predictor's device,
+    here the CPU, so its WBC takes the host path as the JAX one does."""
+    for name in ("NNDET_IN_STATS", "NNDET_INFER_TILE_FACTOR", "NNDET_INFER_BATCH_VOXELS"):
+        monkeypatch.delenv(name, raising=False)
+    params = spread_params(100.0)
+    case = np.random.RandomState(1).standard_normal((1, 48, 48, 48)).astype(np.float32)
+    want = JaxPredictor([JaxBundle(cfg=jax_cfg(), params=params)], tta=True,
+                        ensembler=ensembler).predict_case(case)
+    sd = bridge.state_dict_from_flax(params, RetinaUNet(torch_cfg()))
+    predictor = Predictor([ModelBundle(cfg=torch_cfg(), params=sd)], tta=True,
+                          ensembler=ensembler, device="cpu")
+    got = predictor.predict_case(case)
+    assert type(got["ensembler"]).__name__ == ensembler
+    assert got["ensembler"].device == torch.device("cpu")
+    assert len(want["pred_scores"]) > 0
+    assert len(got["pred_scores"]) == len(want["pred_scores"])
+    # without a model-level NMS many clusters share the saturated score 1.0,
+    # so their order is a float32 tie-break: pair each detection with its
+    # nearest one on the other side, one to one
+    rows = [np.concatenate([r["pred_boxes"], r["pred_scores"][:, None],
+                            r["pred_labels"][:, None] * 1e3], 1) for r in (got, want)]
+    dist = np.abs(rows[0][:, None] - rows[1][None]).max(-1)
+    nearest = dist.argmin(1)
+    assert sorted(nearest.tolist()) == list(range(len(nearest)))
+    assert dist[np.arange(len(nearest)), nearest].max() <= CASE_TOL
+
+
 def test_small_case_is_padded_and_restored():
     """A case smaller than the patch is padded and its boxes shifted back."""
     model = RetinaUNet(torch_cfg(), generator=torch.Generator().manual_seed(0))
