@@ -14,7 +14,10 @@ Phases, each printing its findings:
    at the LUNA plan's stage shapes, bf16 and f32, exact and
    plane-subsampled, and at the train batch's stage 0; NMS at 16 x 1000 and
    2 x 10000 boxes; the fused conv + statistics (#5) at every fused LUNA
-   shape at batch 2 and stage 0b at the train batch; the IoU matrix (#6) at
+   shape at batch 2 and stage 0b at the train batch, each on the route its
+   plan picks and timed on the others it allows, then at the tiny model's
+   fused layers and at edge shapes, every route at least once, two runs bit
+   for bit equal, one JSON line of every LUNA shape's route and times; the IoU matrix (#6) at
    1000 and 4096 boxes, the suppression words (#8) and the keep-scan at
    1000 and 4096, the WBC cluster loop at 1000 boxes x 2 classes), with
    median times from CUDA events, the time of one PyTorch call computing
@@ -63,7 +66,12 @@ keep-scan), max error, times and bound, the ``nvidia-smi`` line, and last
 non-zero and no result line is printed.
 
 ``--profile=DIR`` adds a ``torch.profiler`` trace of one train step (kernel
-time by name; the table into ``DIR/train_profile.txt``).
+time by name; the table into ``DIR/train_profile.txt``). ``--phases=a,b,...``
+runs only the phases named (of ``build``, ``kernels``, ``conv`` (#5's checks
+alone), ``reference``, ``forward``, ``serve``, ``consolidate``, ``nms_mask``,
+``sweep``, ``train``, ``serve_fused``, ``train_fused``); the device phase
+always runs, the ``kernels`` JSON line only when every phase it reads ran.
+With no argument every phase but ``conv`` runs (``kernels`` holds it).
 """
 from __future__ import annotations
 
@@ -197,6 +205,19 @@ FUSED_FN_TOL = 2e-3
 # (x shape, Co) of the tiny model's fused layers at its 32^3 patch
 TINY_FUSED_LAYERS = [((2, 32, 32, 32, 1), 8), ((2, 32, 32, 32, 8), 8), ((2, 16, 16, 16, 16), 16),
                      ((2, 8, 8, 8, 32), 32), ((2, 4, 4, 4, 64), 64)]
+# (x shape, Co) at the edges of #5's plan: checked against the plain version
+# on the route the plan picks
+CONV_EDGE_SHAPES = [
+    ((1, 16, 32, 8, 64), 64),    # W = 8: no brick; split-K
+    ((1, 3, 16, 16, 32), 32),    # D = 3: no brick divides it; split-K
+    ((2, 8, 16, 32, 32), 320),   # Co = 320: a brick with 5 channel tiles
+    ((1, 8, 16, 16, 1), 32),     # Ci = 1: the scalar gather
+    ((1, 8, 16, 16, 8), 16),     # Ci = 8
+    ((1, 8, 16, 32, 16), 32),    # Ci = 16
+    ((8, 2, 64, 64, 32), 32),    # Ci = 32, D = 2: a 2 x 8 x 16 brick
+    ((2, 16, 32, 64, 64), 16),   # two 32-channel chunks of Ci, Co < the tile's 32
+    ((1, 4, 8, 16, 320), 64),    # Ci = 320 on a small grid: 30 splits
+]
 
 
 def log(*args) -> None:
@@ -444,51 +465,98 @@ def phase_kernels(device, stages=LUNA_STAGES, nms_shapes=NMS_SHAPES, train_stage
     return summary
 
 
-def conv_kernel_checks(device, shapes=CONV_SHAPES, train=CONV_TRAIN, reps=10) -> dict:
-    """#5 against its plain version at every fused shape: y within one bf16
-    ulp of the plain (float64-summed) conv, the statistics against two-pass
-    statistics of the kernel's own y. Times the kernel, the plain version,
-    the library composition it replaces (cuDNN ``F.conv3d`` in bf16 on
-    channels_last_3d, then ``torch.var_mean``) and states the bound; the
-    summary is the train batch's stage 0b."""
+def conv_check(x, w, plan=None) -> tuple:
+    """#5 on ``plan`` (default: the card's) against its plain version: y
+    within one bf16 ulp of the plain (float64-summed) conv, the statistics
+    against two-pass statistics of the kernel's own y, and a second run bit
+    for bit equal to the first; returns (y, mean, var, max error)."""
     from nndetection_tpu_torch.ops.conv_in_stats import conv3d_in_stats, conv3d_in_stats_plain
 
+    y, mean, var = conv3d_in_stats(x, w, plan)
+    py, _, _ = conv3d_in_stats_plain(x, w)
+    name = f"conv3d_in_stats {list(x.shape)} -> {w.shape[-1]}" + (f" {plan.route}" if plan else "")
+    e_y = check_close(f"{name} y", y, py, **TOL["conv_y"])
+    del py
+    yf = y.float()
+    kmean = yf.mean(dim=(1, 2, 3))
+    kvar = (yf - kmean[:, None, None, None]).square().mean(dim=(1, 2, 3))
+    e_s = max(check_close(f"{name} mean", mean, kmean, **TOL["conv_stats"]),
+              check_close(f"{name} var", var, kvar, **TOL["conv_stats"]))
+    del yf
+    y2, mean2, var2 = conv3d_in_stats(x, w, plan)
+    if not (torch.equal(y, y2) and torch.equal(mean, mean2) and torch.equal(var, var2)):
+        raise AssertionError(f"{name}: two runs differ")
+    return y, mean, var, max(e_y, e_s)
+
+
+def conv_kernel_checks(device, shapes=CONV_SHAPES, train=CONV_TRAIN, tiny=TINY_FUSED_LAYERS,
+                       edge=CONV_EDGE_SHAPES, reps=10) -> dict:
+    """#5 against its plain version (:func:`conv_check`) at every fused LUNA
+    shape, the train batch's stage 0b, the tiny model's fused layers and the
+    edge shapes, on the route ``plan_conv`` picks for the card. At the LUNA
+    shapes it also times the kernel, the plain version, the library
+    composition it replaces (cuDNN ``F.conv3d`` in bf16 on channels_last_3d,
+    then ``torch.var_mean``), states the bound, and times the other routes
+    the shape allows (im2col always; split-K with twice the block target);
+    one JSON line holds every shape's route and times. The summary is the
+    train batch's stage 0b."""
+    from nndetection_tpu_torch.ops.conv_in_stats import (
+        conv3d_in_stats, conv3d_in_stats_plain, plan_conv, sm_count)
+
+    n_sms = sm_count(device)
     gd = torch.Generator(device=device).manual_seed(2)
     err = 0.0
-    out = {}
-    for i, (xs, co) in enumerate(list(shapes) + [train]):
+    out, rows, routes = {}, [], set()
+    luna = list(shapes) + [train]
+    for i, (xs, co) in enumerate(luna + list(tiny) + list(edge)):
         ci = xs[-1]
         x = torch.randn(xs, generator=gd, device=device).to(torch.bfloat16)
         w = torch.randn((3, 3, 3, ci, co), generator=gd, device=device) * (2.0 / (27 * ci)) ** 0.5
-        y, mean, var = conv3d_in_stats(x, w)
-        py, _, _ = conv3d_in_stats_plain(x, w)
-        name = f"conv3d_in_stats {list(xs)} -> {co}"
-        e_y = check_close(f"{name} y", y, py, **TOL["conv_y"])
-        yf = y.float()
-        kmean = yf.mean(dim=(1, 2, 3))
-        kvar = (yf - kmean[:, None, None, None]).square().mean(dim=(1, 2, 3))
-        e_s = max(check_close(f"{name} mean", mean, kmean, **TOL["conv_stats"]),
-                  check_close(f"{name} var", var, kvar, **TOL["conv_stats"]))
-        del py, yf
-        err = max(err, e_y, e_s)
+        plan = plan_conv(xs, co, n_sms)
+        routes.add(plan.route)
+        y, mean, var, e = conv_check(x, w)
+        err = max(err, e)
+        name = (f"conv3d_in_stats {list(xs)} -> {co} {plan.route}"
+                + (f" {plan.td}x{plan.th}x16" if plan.route == "brick" else "")
+                + (f" {plan.splits} splits" if plan.route == "split_k" else ""))
+        if i >= len(luna):
+            log(f"[kernels] {name}: err {e:.2e}")
+            continue
         xn, wn = x.permute(0, 4, 1, 2, 3), w.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous()
 
         def library():
             yl = torch.nn.functional.conv3d(xn, wn, padding=1)
             return torch.var_mean(yl, dim=(2, 3, 4), correction=0)
 
+        alts = {}
+        if plan.route != "im2col":
+            alts["im2col"] = plan_conv(xs, co, n_sms, route="im2col")
+        if plan.route == "split_k":
+            alts["split_k x2"] = plan_conv(xs, co, 2 * n_sms, route="split_k")
+        for label, alt in alts.items():
+            err = max(err, conv_check(x, w, alt)[3])
         ms = median_ms(lambda: conv3d_in_stats(x, w), reps)
+        alt_ms = {label: median_ms(lambda: conv3d_in_stats(x, w, alt), reps)
+                  for label, alt in alts.items()}
         plain_ms = median_ms(lambda: conv3d_in_stats_plain(x, w), 3, 1)
         library_ms = median_ms(library, reps)
         flops = 2 * 27 * ci * co * x.numel() // ci
         b = bound(nbytes(x, w.to(torch.bfloat16), y, mean, var), flops, PEAK_BF16)
-        log(f"[kernels] {name}: y err {e_y:.2e}, stats err {e_s:.2e}; {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, cuDNN conv + var_mean "
-            f"{library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        log(f"[kernels] {name}: err {e:.2e}; {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+            + "".join(f"{k} {v:.4f} ms, " for k, v in alt_ms.items())
+            + f"plain {plain_ms:.4f} ms, cuDNN conv + var_mean {library_ms:.4f} ms, "
+            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        rows.append(dict(shape=list(xs), co=co, route=plan.route, splits=plan.splits,
+                         brick=[plan.td, plan.th, 16] if plan.route == "brick" else None,
+                         ms=ms, other_routes_ms=alt_ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=b["bound_ms"], bound_by=b["bound_by"]))
         if i == len(shapes):
             out = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, tflops=flops / ms / 1e9,
                        shape=f"{list(xs)} bf16 -> {co}", **b)
         del x, y
+    if routes != {"brick", "split_k", "im2col"}:
+        raise AssertionError(f"conv3d_in_stats: routes exercised {sorted(routes)}, want all three")
+    print(json.dumps({"conv3d_in_stats_shapes": rows}), flush=True)
     out["max_abs_err"] = err
     return out
 
@@ -1233,10 +1301,11 @@ def phase_train_fused(device, unfused, **kwargs) -> dict:
     if r["launches"]["conv3d_in_stats"] != want:
         raise AssertionError(f"train fused: {r['launches']['conv3d_in_stats']} conv3d_in_stats "
                              f"launches in {r['steps']} steps, want {want}")
-    log(f"[train fused] against the default configuration in this run: "
-        f"{r['s_per_step']:.4f} vs {unfused['s_per_step']:.4f} s/step, "
-        f"{r['patches_per_s']:.2f} vs {unfused['patches_per_s']:.2f} patches/s, "
-        f"peak {r['peak_gib']:.2f} vs {unfused['peak_gib']:.2f} GiB")
+    if unfused is not None:
+        log(f"[train fused] against the default configuration in this run: "
+            f"{r['s_per_step']:.4f} vs {unfused['s_per_step']:.4f} s/step, "
+            f"{r['patches_per_s']:.2f} vs {unfused['patches_per_s']:.2f} patches/s, "
+            f"peak {r['peak_gib']:.2f} vs {unfused['peak_gib']:.2f} GiB")
     return r
 
 
@@ -1266,41 +1335,77 @@ def profile_train_step(trainer, state, targets, out_dir) -> None:
         log(f"[profile] {line}")
 
 
+PHASES = ("build", "kernels", "conv", "reference", "forward", "serve", "consolidate", "nms_mask",
+          "sweep", "train", "serve_fused", "train_fused")
+
+
+def parse_phases(argv) -> tuple:
+    """``--phases=a,b,...`` (default: all but ``conv``, which ``kernels``
+    includes: #5's checks alone). ``nms_mask`` runs on ``consolidate``'s
+    ensemblers, so it brings that phase along."""
+    arg = next((a.split("=", 1)[1] for a in argv if a.startswith("--phases=")), None)
+    if arg is None:
+        return tuple(p for p in PHASES if p != "conv")
+    chosen = set(arg.split(","))
+    unknown = chosen - set(PHASES)
+    if unknown:
+        raise SystemExit(f"unknown phases {sorted(unknown)}; known: {','.join(PHASES)}")
+    if "nms_mask" in chosen:
+        chosen.add("consolidate")
+    return tuple(p for p in PHASES if p in chosen)
+
+
 def main() -> None:
     profile_dir = next((a.split("=", 1)[1] for a in sys.argv[1:]
                         if a.startswith("--profile=")), None)
+    phases = parse_phases(sys.argv[1:])
     smi = phase_device()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    phase_build()
-    summary = phase_kernels(device)
-    phase_reference(device)
-    phase_reference_fused(device)
-    phase_forward(device)
-    launches = {"serve": phase_serve(device)[0]}
-    launches["consolidate"], ensemblers = phase_consolidate(device)
-    launches["nms mask"] = phase_nms_mask(device, ensemblers["BoxEnsemblerSelective"])
-    launches["sweep"] = phase_sweep(device)
-    train = phase_train(device, profile_dir=profile_dir)
-    launches["train"] = train["launches"]
-    launches["serve fused"] = phase_serve_fused(device)
-    launches["train fused"] = phase_train_fused(device, train)["launches"]
+    launches, summary, train = {}, None, None
+    if "build" in phases:
+        phase_build()
+    if "kernels" in phases:
+        summary = phase_kernels(device)
+    elif "conv" in phases:
+        conv_kernel_checks(device)
+    if "reference" in phases:
+        phase_reference(device)
+        phase_reference_fused(device)
+    if "forward" in phases:
+        phase_forward(device)
+    if "serve" in phases:
+        launches["serve"] = phase_serve(device)[0]
+    if "consolidate" in phases:
+        launches["consolidate"], ensemblers = phase_consolidate(device)
+    if "nms_mask" in phases:
+        launches["nms mask"] = phase_nms_mask(device, ensemblers["BoxEnsemblerSelective"])
+    if "sweep" in phases:
+        launches["sweep"] = phase_sweep(device)
+    if "train" in phases:
+        train = phase_train(device, profile_dir=profile_dir)
+        launches["train"] = train["launches"]
+    if "serve_fused" in phases:
+        launches["serve fused"] = phase_serve_fused(device)
+    if "train_fused" in phases:
+        launches["train fused"] = phase_train_fused(device, train)["launches"]
     # each kernel's launches in the phase that drives it: NMS in serving,
     # the instance norm in training, #5 in the fused training, #6 and the
     # cluster loop in the consolidation, #8 and the keep-scan in the NMS mask
-    phases = {"nms_topk": "serve", "conv3d_in_stats": "train fused",
+    drives = {"nms_topk": "serve", "conv3d_in_stats": "train fused",
               "iou_matrix": "consolidate", "wbc_cluster": "consolidate",
               "suppression_matrix": "nms mask", "nms_keep_scan": "nms mask"}
-    kernels = []
-    for name in KERNELS:
-        phase = phases.get(name, "train")
-        row = summary[name]
-        kernels.append({"name": name, **KERNELS[name], "launches": launches[phase][name],
-                        "phase": phase, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                        "shape": row["shape"]})
-    print(json.dumps({"kernels": kernels}))
+    if summary is not None and all(drives.get(n, "train") in launches for n in KERNELS):
+        kernels = []
+        for name in KERNELS:
+            phase = drives.get(name, "train")
+            row = summary[name]
+            kernels.append({"name": name, **KERNELS[name], "launches": launches[phase][name],
+                            "phase": phase, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                            "shape": row["shape"]})
+        print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

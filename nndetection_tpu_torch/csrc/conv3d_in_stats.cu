@@ -18,25 +18,48 @@
 // K = 27*Ci, 2*27*Ci*Co flops per voxel. At Ci = Co = 32 a voxel does 55,296
 // flops against 128 bytes of x read and y written once: 432 flops/byte,
 // above the card's ~295, so the tensor cores bound it, provided the 27-fold
-// reuse of every input byte stays on chip (the tiles below). The stem
-// (Ci = 1, Co = 32) does 1,728 flops per 66 bytes, 26 flops/byte: memory
-// bounds it, and y's write is most of that.
+// reuse of every input byte stays on chip. The stem (Ci = 1, Co = 32) does
+// 1,728 flops per 66 bytes, 26 flops/byte: memory bounds it, and y's write
+// is most of that.
 //
-// Design (simple first; TMA, wgmma and a persistent schedule are later
-// work): a block owns a tile of BM voxels of one batch item x BN output
-// channels, 128 x 64 when Co is a multiple of 64 and 256 x 32 otherwise, so
-// that each of the eight warps computes a 32 x 32 sub-tile either way, and
-// walks K in steps of BK = 32. K is packed across taps and channels
-// (k = tap * Ci + ci, zero-padded to a multiple of 32), so the stem's
-// K = 27 fills one step instead of wasting 15/16 of each MMA. The
-// A tile is gathered on the fly (im2col) from x with the halo zero-filled at
-// the volume's borders: 16-byte cp.async copies when Ci % 8 == 0 (8 channels
-// of one tap), scalar loads otherwise (the stem); A and B tiles are double
-// buffered in shared memory, so the next step's copies overlap this step's
-// MMAs. Eight warps run bf16 wmma 16x16x16 with f32 accumulators. The
-// epilogue stages the f32 tile in shared memory, rounds it to bf16, stores y
-// (NDHWC: the port's channels_last_3d memory, no copy) and computes the
-// tile's per-channel mean and M2 of the rounded values, two-pass.
+// Every route: a block owns a tile of BM voxels of one batch item x BN
+// output channels, 128 x 64 when Co is a multiple of 64 and 256 x 32
+// otherwise, so that each of the eight warps computes a 32 x 32 sub-tile with
+// bf16 wmma 16x16x16 and f32 accumulators, and walks K in steps of BK = 32
+// (k = tap * Ci + ci, zero-padded to a multiple of 32). The weights' B tile
+// (BK x BN) is streamed per step, double buffered with 16-byte cp.async.
+// The epilogue (tile_epilogue) stages the f32 tile in shared memory, rounds
+// it to bf16, stores y (NDHWC: the port's channels_last_3d memory) and
+// writes the tile's per-channel mean and M2 of the rounded values, two-pass.
+// The caller's plan (ops/conv_in_stats.py::plan_conv) picks one of three
+// routes; this file trusts it and checks it only for range.
+//
+// * brick (Ci % 32 == 0, W % 16 == 0, a full grid): the tile is a brick of
+//   Td x Th x 16 voxels whose rows are runs of 16 consecutive w, the brick
+//   dividing the volume. Per 32-channel chunk of Ci the block copies the
+//   halo brick (Td+2) x (Th+2) x 18 voxels into shared memory once and runs
+//   all 27 taps from it: the A fragment of a tap is the brick shifted by the
+//   tap, read by wmma::load_matrix_sync in place (no im2col). Every input
+//   byte crosses to the SM (Td+2)(Th+2)*18 / (Td*Th*16) times (2.5 for
+//   4 x 4 x 16) instead of 27. The voxel pitch is 48 bf16 (96 B): every
+//   shift keeps the fragment 32-byte aligned, at a 2-way bank conflict. The
+//   next chunk's brick arrives a 27th per tap, in the same cp.async group as
+//   the next tap's weights, so the waits stay in step; one brick buffer when
+//   Ci = 32 (two or three blocks then share an SM), two otherwise. Dynamic
+//   shared memory above 48 KB.
+// * split_k (a grid under one wave, Ci % 8 == 0: the deep stages): the
+//   im2col kernel below takes a range of K steps per split, one grid
+//   dimension wider, and stores its f32 tile into a workspace
+//   [S, B, M_pad, N_pad]; a finish kernel sums the S partials in split order,
+//   then runs the shared epilogue. Bounded by the latency of the K loop,
+//   which split-K divides.
+// * im2col (everything else: the stem, small Ci): the A tile is gathered
+//   from x per K step with the halo zero-filled, 16-byte cp.async when
+//   Ci % 8 == 0, scalar loads otherwise; the stem's K = 27 fills one step.
+//
+// wmma stays (no mma.sync/ldmatrix with a swizzle, no wgmma + TMA, no
+// persistent schedule): those are the next levers, each a rewrite of the
+// fragment path on its own.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -50,7 +73,13 @@ using namespace nvcuda;
 constexpr int BK = 32;        // K per step
 constexpr int CO_ALIGN = 64;  // packed weights: Co padded to a multiple of this
 constexpr int kThreads = 256;
-constexpr int LDA = BK + 8;   // bf16 row pitch of the A tile (80 B)
+constexpr int LDA = BK + 8;   // bf16 row pitch of the im2col A tile (80 B)
+constexpr int BRICK_W = 16;   // a brick's run of consecutive w
+constexpr int HALO_W = BRICK_W + 2;
+constexpr int PITCH = 48;     // bf16 per voxel of the halo brick: 32 channels + 16
+constexpr int kMaxSmem = 232448;  // dynamic + static shared memory of one block
+
+enum Route { kIm2col = 0, kSplitK = 1, kBrick = 2 };
 
 // voxels per tile for Co: 128 with 64-channel tiles, 256 with 32-channel ones
 inline int tile_m(int co) { return co % 64 == 0 ? 128 : 256; }
@@ -74,7 +103,79 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
 
+// B tile of K step kt: BK rows x BN channels of the packed weights from row
+// k0, always in bounds
+template <int BN>
+__device__ __forceinline__ void load_b_tile(__nv_bfloat16* bs, const __nv_bfloat16* wpk, int k0,
+                                            int n0, int Co_pad, int tid) {
+  constexpr int LDB = BN + 8;
+  constexpr int B_CHUNKS = BK * BN / 8;
+  for (int c = tid; c < B_CHUNKS; c += kThreads) {
+    const int kr = c / (BN / 8), nc = c % (BN / 8);
+    cp_async16(bs + kr * LDB + nc * 8, wpk + static_cast<int64_t>(k0 + kr) * Co_pad + n0 + nc * 8,
+               true);
+  }
+}
+
+// The shared epilogue. Cs [BM][BN + 4] holds the tile's f32 sums, every
+// thread synchronised. Rounds them to bf16 in place, stores rows r < rows to
+// yb + row_voxel(r) * Co + n0 + c, and writes the per-channel mean and M2 of
+// the rounded values over those rows to part_mean/part_m2 at part + n0 + c.
+template <int BM, int BN, class RowVoxel>
+__device__ __forceinline__ void tile_epilogue(float* Cs, int rows, RowVoxel row_voxel,
+                                              __nv_bfloat16* yb, int Co, int n0,
+                                              float* part_mean, float* part_m2, int64_t part) {
+  constexpr int LDC = BN + 4;
+  const int tid = threadIdx.x;
+  // pairs of channels: BN / 2 per row
+  for (int e = tid; e < BM * (BN / 2); e += kThreads) {
+    const int r = e / (BN / 2), c = 2 * (e % (BN / 2));
+    float* cp = Cs + r * LDC + c;
+    const __nv_bfloat162 v = __floats2bfloat162_rn(cp[0], cp[1]);
+    cp[0] = __low2float(v);
+    cp[1] = __high2float(v);
+    if (r < rows && n0 + c < Co)  // Co is even
+      *reinterpret_cast<__nv_bfloat162*>(yb + row_voxel(r) * Co + n0 + c) = v;
+  }
+  __syncthreads();
+
+  // GROUPS threads per channel, each over BM / GROUPS rows, then the groups
+  // in a fixed order
+  constexpr int GROUPS = kThreads / BN;
+  constexpr int ROWS_PER = BM / GROUPS;
+  __shared__ float red[kThreads];
+  __shared__ float tile_mean[BN];
+  const int col = tid % BN, grp = tid / BN;
+  float s = 0.0f;
+  for (int r = grp * ROWS_PER; r < (grp + 1) * ROWS_PER && r < rows; ++r) s += Cs[r * LDC + col];
+  red[tid] = s;
+  __syncthreads();
+  if (grp == 0) {
+    float t = 0.0f;
+    for (int g = 0; g < GROUPS; ++g) t += red[g * BN + col];
+    tile_mean[col] = t / static_cast<float>(rows);
+  }
+  __syncthreads();
+  const float mu = tile_mean[col];
+  float q = 0.0f;
+  for (int r = grp * ROWS_PER; r < (grp + 1) * ROWS_PER && r < rows; ++r) {
+    const float dv = Cs[r * LDC + col] - mu;
+    q += dv * dv;
+  }
+  __syncthreads();  // every thread has read red[] of the first pass
+  red[tid] = q;
+  __syncthreads();
+  if (grp == 0 && n0 + col < Co) {
+    float t = 0.0f;
+    for (int g = 0; g < GROUPS; ++g) t += red[g * BN + col];
+    part_mean[part + n0 + col] = mu;
+    part_m2[part + n0 + col] = t;
+  }
+}
+
+// ---------------------------------------------------------- im2col, split-K
 // the voxel of row r of this block's tile: its (d, h, w) and whether it exists
 struct Voxel {
   int d, h, w;
@@ -91,17 +192,23 @@ __device__ __forceinline__ Voxel voxel_of(int m, int M, int H, int W) {
   return v;
 }
 
-template <int BM, int BN, bool VEC>
+// SPLIT: blockIdx.z = b * splits + split, K steps [split * k_steps, +k_steps)
+// of n_k, the f32 tile into ws [splits, B, m_tiles * BM, gridDim.x * BN];
+// otherwise all K steps and the epilogue.
+template <int BM, int BN, bool VEC, bool SPLIT>
 __global__ void __launch_bounds__(kThreads)
 conv3d_in_stats_kernel(const __nv_bfloat16* __restrict__ x,   // [B, D, H, W, Ci]
                        const __nv_bfloat16* __restrict__ wpk, // [K_pad, Co_pad]
                        __nv_bfloat16* __restrict__ y,         // [B, D, H, W, Co]
                        float* __restrict__ part_mean,         // [B, m_tiles, Co]
                        float* __restrict__ part_m2,           // [B, m_tiles, Co]
-                       int D, int H, int W, int Ci, int Co, int K, int K_pad, int Co_pad) {
+                       float* __restrict__ ws,                // split-K workspace
+                       int D, int H, int W, int Ci, int Co, int K, int K_pad, int Co_pad,
+                       int splits, int k_steps) {
   using S = Smem<BM, BN>;
   constexpr int WARPS_N = BN / 32, WARPS_M = BM / 32;  // 8 warps of 32 x 32
   static_assert(WARPS_M * WARPS_N * 32 == kThreads, "eight warps");
+  static_assert(!SPLIT || VEC, "split-K takes the vector gather");
   constexpr int FM = 2, FN = 2;
   constexpr int A_PASSES = BM / 64;  // 16-byte A chunks per thread and step
   __shared__ __align__(128) unsigned char smem_raw[S::BYTES];
@@ -111,7 +218,8 @@ conv3d_in_stats_kernel(const __nv_bfloat16* __restrict__ x,   // [B, D, H, W, Ci
 
   const int n0 = blockIdx.x * BN;
   const int mt = blockIdx.y;
-  const int b = blockIdx.z;
+  const int b = SPLIT ? blockIdx.z / splits : blockIdx.z;
+  const int split = SPLIT ? blockIdx.z % splits : 0;
   const int m_tiles = gridDim.y;
   const int M = D * H * W;
   const int m0 = mt * BM;
@@ -133,7 +241,6 @@ conv3d_in_stats_kernel(const __nv_bfloat16* __restrict__ x,   // [B, D, H, W, Ci
 
   auto load_tile = [&](int kt, int buf) {
     __nv_bfloat16* as = As + buf * S::A_ELEMS;
-    __nv_bfloat16* bs = Bs + buf * S::B_ELEMS;
     if constexpr (VEC) {
       const int k0 = kt * BK + a_kc * 8;
       const bool k_ok = k0 < K;
@@ -169,13 +276,7 @@ conv3d_in_stats_kernel(const __nv_bfloat16* __restrict__ x,   // [B, D, H, W, Ci
         }
       }
     }
-    // B tile: BK rows x BN channels of the packed weights, always in bounds
-    constexpr int B_CHUNKS = BK * BN / 8;
-    for (int c = tid; c < B_CHUNKS; c += kThreads) {
-      const int kr = c / (BN / 8), nc = c % (BN / 8);
-      cp_async16(bs + kr * S::LDB + nc * 8,
-                 wpk + static_cast<int64_t>(kt * BK + kr) * Co_pad + n0 + nc * 8, true);
-    }
+    load_b_tile<BN>(Bs + buf * S::B_ELEMS, wpk, kt * BK, n0, Co_pad, tid);
   };
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
@@ -185,15 +286,18 @@ conv3d_in_stats_kernel(const __nv_bfloat16* __restrict__ x,   // [B, D, H, W, Ci
     for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
   const int n_k = K_pad / BK;
-  load_tile(0, 0);
+  const int kt0 = split * k_steps;
+  const int kt1 = SPLIT ? min(n_k, kt0 + k_steps) : n_k;
+  load_tile(kt0, 0);
   cp_async_commit();
-  for (int kt = 0; kt < n_k; ++kt) {
-    if (kt + 1 < n_k) load_tile(kt + 1, (kt + 1) & 1);
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int buf = (kt - kt0) & 1;
+    if (kt + 1 < kt1) load_tile(kt + 1, buf ^ 1);
     cp_async_commit();  // possibly empty: keeps the group count regular
     cp_async_wait1();   // this step's group has landed
     __syncthreads();
-    const __nv_bfloat16* as = As + (kt & 1) * S::A_ELEMS;
-    const __nv_bfloat16* bs = Bs + (kt & 1) * S::B_ELEMS;
+    const __nv_bfloat16* as = As + buf * S::A_ELEMS;
+    const __nv_bfloat16* bs = Bs + buf * S::B_ELEMS;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[FM];
@@ -212,70 +316,195 @@ conv3d_in_stats_kernel(const __nv_bfloat16* __restrict__ x,   // [B, D, H, W, Ci
     __syncthreads();  // the buffer is refilled in the next step
   }
 
-  // ---- epilogue: stage, round to bf16, store y, tile statistics ----------
+  if constexpr (SPLIT) {
+    const int n_ws = gridDim.x * BN;
+    float* wt = ws + ((static_cast<int64_t>(split) * (gridDim.z / splits) + b) * m_tiles * BM + m0) *
+                         n_ws + n0;
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+      for (int j = 0; j < FN; ++j)
+        wmma::store_matrix_sync(
+            wt + static_cast<int64_t>(wm * FM * 16 + i * 16) * n_ws + wn * FN * 16 + j * 16,
+            acc[i][j], n_ws, wmma::mem_row_major);
+  } else {
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+      for (int j = 0; j < FN; ++j)
+        wmma::store_matrix_sync(Cs + (wm * FM * 16 + i * 16) * S::LDC + wn * FN * 16 + j * 16,
+                                acc[i][j], S::LDC, wmma::mem_row_major);
+    __syncthreads();
+    tile_epilogue<BM, BN>(
+        Cs, min(BM, M - m0), [m0](int r) { return static_cast<int64_t>(m0 + r); },
+        y + static_cast<int64_t>(b) * M * Co, Co, n0, part_mean, part_m2,
+        (static_cast<int64_t>(b) * m_tiles + mt) * Co);
+  }
+}
+
+// Split-K finish: the S partial tiles of one (n tile, m tile, b) summed in
+// split order, then the shared epilogue.
+template <int BM, int BN>
+__global__ void __launch_bounds__(kThreads)
+conv3d_split_finish_kernel(const float* __restrict__ ws, __nv_bfloat16* __restrict__ y,
+                           float* __restrict__ part_mean, float* __restrict__ part_m2, int B,
+                           int M, int Co, int splits) {
+  constexpr int LDC = BN + 4;
+  __shared__ __align__(128) float Cs[BM * LDC];
+  const int n0 = blockIdx.x * BN, mt = blockIdx.y, b = blockIdx.z;
+  const int m_tiles = gridDim.y, m0 = mt * BM;
+  const int n_ws = gridDim.x * BN;
+  const int64_t split_stride = static_cast<int64_t>(B) * m_tiles * BM * n_ws;
+  const float* wt = ws + (static_cast<int64_t>(b) * m_tiles * BM + m0) * n_ws + n0;
+  for (int e = threadIdx.x; e < BM * BN / 4; e += kThreads) {
+    const int r = e / (BN / 4), c = 4 * (e % (BN / 4));
+    const float* src = wt + static_cast<int64_t>(r) * n_ws + c;
+    float4 acc = *reinterpret_cast<const float4*>(src);
+    for (int s = 1; s < splits; ++s) {
+      const float4 v = *reinterpret_cast<const float4*>(src + s * split_stride);
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
+    }
+    *reinterpret_cast<float4*>(Cs + r * LDC + c) = acc;
+  }
+  __syncthreads();
+  tile_epilogue<BM, BN>(
+      Cs, min(BM, M - m0), [m0](int r) { return static_cast<int64_t>(m0 + r); },
+      y + static_cast<int64_t>(b) * M * Co, Co, n0, part_mean, part_m2,
+      (static_cast<int64_t>(b) * m_tiles + mt) * Co);
+}
+
+// ------------------------------------------------------------------- brick
+// Halo brick of Td x Th x 16 output voxels (blockIdx.y, bricks in w fastest,
+// then h, then d; they divide the volume). Dynamic shared memory:
+// [nbuf][(Td+2)(Th+2)18][PITCH] bf16 bricks, then [2][BK][BN + 8] bf16
+// weights; the f32 output tile overlays the bricks after the K loop.
+template <int BM, int BN>
+__global__ void __launch_bounds__(kThreads)
+conv3d_brick_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wpk,
+                    __nv_bfloat16* __restrict__ y, float* __restrict__ part_mean,
+                    float* __restrict__ part_m2, int D, int H, int W, int Ci, int Co, int Co_pad,
+                    int Td, int Th, int nbuf) {
+  constexpr int WARPS_N = BN / 32, WARPS_M = BM / 32;
+  static_assert(WARPS_M * WARPS_N * 32 == kThreads, "eight warps");
+  constexpr int FM = 2, FN = 2;
+  constexpr int LDB = BN + 8, B_ELEMS = BK * LDB;
+  extern __shared__ __align__(128) unsigned char smem_dyn[];
+  const int halo_h = Th + 2;
+  const int nv = (Td + 2) * halo_h * HALO_W;  // voxels of one halo brick
+  const int brick_elems = nv * PITCH;
+  __nv_bfloat16* bricks = reinterpret_cast<__nv_bfloat16*>(smem_dyn);
+  __nv_bfloat16* Bs = bricks + nbuf * brick_elems;
+  float* Cs = reinterpret_cast<float*>(smem_dyn);
+
+  const int n0 = blockIdx.x * BN;
+  const int mt = blockIdx.y, b = blockIdx.z;
+  const int m_tiles = gridDim.y;
+  const int M = D * H * W;
+  const int bw = W / BRICK_W, bh = H / Th;
+  const int w0 = (mt % bw) * BRICK_W, h0 = ((mt / bw) % bh) * Th, d0 = mt / (bw * bh) * Td;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const __nv_bfloat16* xb = x + static_cast<int64_t>(b) * M * Ci;
+
+  // this warp's two runs of 16 voxels: their (z, y) in the brick, as the
+  // offset of the tap (0, 0, 0) voxel in the halo brick
+  int run_voxel[FM];
+#pragma unroll
+  for (int i = 0; i < FM; ++i) {
+    const int run = wm * FM + i;
+    run_voxel[i] = ((run / Th) * halo_h + run % Th) * HALO_W;
+  }
+
+  const int n_chunks = Ci / 32;
+  const int n_steps = n_chunks * 27;
+  const int pieces = nv * 4;                // 16-byte pieces of one brick
+  const int per_tap = (pieces + 26) / 27;  // the next brick's pieces per tap
+
+  auto load_brick = [&](int chunk, int buf, int begin, int end) {
+    __nv_bfloat16* dst = bricks + buf * brick_elems;
+    for (int i = begin + tid; i < end; i += kThreads) {
+      const int v = i >> 2, q = i & 3;
+      const int hx = v % HALO_W, t = v / HALO_W;
+      const int dd = d0 - 1 + t / halo_h, hh = h0 - 1 + t % halo_h, ww = w0 - 1 + hx;
+      const bool ok = dd >= 0 && dd < D && hh >= 0 && hh < H && ww >= 0 && ww < W;
+      const __nv_bfloat16* src =
+          ok ? xb + ((static_cast<int64_t>(dd) * H + hh) * W + ww) * Ci + chunk * 32 + q * 8 : xb;
+      cp_async16(dst + v * PITCH + q * 8, src, ok);
+    }
+  };
+  // the weights of step s: tap s % 27 of chunk s / 27
+  auto load_b = [&](int s, int buf) {
+    const int chunk = s / 27, tap = s - chunk * 27;
+    load_b_tile<BN>(Bs + buf * B_ELEMS, wpk, tap * Ci + chunk * 32, n0, Co_pad, tid);
+  };
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+  load_brick(0, 0, 0, pieces);
+  load_b(0, 0);
+  cp_async_commit();
+  for (int s = 0; s < n_steps; ++s) {
+    const int chunk = s / 27, tap = s - chunk * 27;
+    if (s + 1 < n_steps) load_b(s + 1, (s + 1) & 1);
+    if (chunk + 1 < n_chunks)
+      load_brick(chunk + 1, (chunk + 1) % nbuf, tap * per_tap, min(pieces, (tap + 1) * per_tap));
+    cp_async_commit();
+    cp_async_wait1();  // this step's weights, and at tap 0 the whole brick, have landed
+    __syncthreads();
+    const __nv_bfloat16* br =
+        bricks + (chunk % nbuf) * brick_elems +
+        (((tap / 9) * halo_h + (tap / 3) % 3) * HALO_W + tap % 3) * PITCH;
+    const __nv_bfloat16* bs = Bs + (s & 1) * B_ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[FM];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[FN];
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+        wmma::load_matrix_sync(fa[i], br + run_voxel[i] * PITCH + kk, PITCH);
+#pragma unroll
+      for (int j = 0; j < FN; ++j)
+        wmma::load_matrix_sync(fb[j], bs + kk * LDB + wn * FN * 16 + j * 16, LDB);
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+    __syncthreads();  // the buffers are refilled in the next steps
+  }
+  cp_async_wait_all();  // only empty groups remain; the tile overlays the bricks
+
+  constexpr int LDC = BN + 4;
 #pragma unroll
   for (int i = 0; i < FM; ++i)
 #pragma unroll
     for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(Cs + (wm * FM * 16 + i * 16) * S::LDC + wn * FN * 16 + j * 16,
-                              acc[i][j], S::LDC, wmma::mem_row_major);
+      wmma::store_matrix_sync(Cs + (wm * FM * 16 + i * 16) * LDC + wn * FN * 16 + j * 16,
+                              acc[i][j], LDC, wmma::mem_row_major);
   __syncthreads();
-
-  const int rows = min(BM, M - m0);
-  __nv_bfloat16* yb = y + (static_cast<int64_t>(b) * M + m0) * Co;
-  // pairs of channels: BN / 2 per row
-  for (int e = tid; e < BM * (BN / 2); e += kThreads) {
-    const int r = e / (BN / 2), c = 2 * (e % (BN / 2));
-    float* cp = Cs + r * S::LDC + c;
-    const __nv_bfloat162 v = __floats2bfloat162_rn(cp[0], cp[1]);
-    cp[0] = __low2float(v);
-    cp[1] = __high2float(v);
-    if (r < rows && n0 + c < Co)  // Co is even
-      *reinterpret_cast<__nv_bfloat162*>(yb + static_cast<int64_t>(r) * Co + n0 + c) = v;
-  }
-  __syncthreads();
-
-  // per-channel mean and M2 of the tile's rounded values, over its valid
-  // rows: GROUPS threads per channel, each over BM / GROUPS rows, then the
-  // groups in a fixed order
-  constexpr int GROUPS = kThreads / BN;
-  constexpr int ROWS_PER = BM / GROUPS;
-  __shared__ float red[kThreads];
-  __shared__ float tile_mean[BN];
-  const int col = tid % BN, grp = tid / BN;
-  float s = 0.0f;
-  for (int r = grp * ROWS_PER; r < (grp + 1) * ROWS_PER && r < rows; ++r)
-    s += Cs[r * S::LDC + col];
-  red[tid] = s;
-  __syncthreads();
-  if (grp == 0) {
-    float t = 0.0f;
-    for (int g = 0; g < GROUPS; ++g) t += red[g * BN + col];
-    tile_mean[col] = t / static_cast<float>(rows);
-  }
-  __syncthreads();
-  const float mu = tile_mean[col];
-  float q = 0.0f;
-  for (int r = grp * ROWS_PER; r < (grp + 1) * ROWS_PER && r < rows; ++r) {
-    const float dv = Cs[r * S::LDC + col] - mu;
-    q += dv * dv;
-  }
-  __syncthreads();  // every thread has read red[] of the first pass
-  red[tid] = q;
-  __syncthreads();
-  if (grp == 0 && n0 + col < Co) {
-    float t = 0.0f;
-    for (int g = 0; g < GROUPS; ++g) t += red[g * BN + col];
-    const int64_t o = (static_cast<int64_t>(b) * m_tiles + mt) * Co + n0 + col;
-    part_mean[o] = mu;
-    part_m2[o] = t;
-  }
+  tile_epilogue<BM, BN>(
+      Cs, BM,
+      [=](int r) {
+        const int run = r / BRICK_W;
+        return (static_cast<int64_t>(d0 + run / Th) * H + h0 + run % Th) * W + w0 + r % BRICK_W;
+      },
+      y + static_cast<int64_t>(b) * M * Co, Co, n0, part_mean, part_m2,
+      (static_cast<int64_t>(b) * m_tiles + mt) * Co);
 }
 
 // Chan's parallel combine of the [m_tiles] partials of 32 channels of one
 // batch item, in a fixed order: lane = channel (coalesced), warp w takes
 // tiles w, w + 32, ...; then the 32 warps' sums in order.
-// mean = sum(n_s m_s) / M; M2 = sum(M2_s + n_s (m_s - mean)^2).
+// mean = sum(n_s m_s) / M; M2 = sum(M2_s + n_s (m_s - mean)^2). Tile t holds
+// min(BM, M - t * BM) voxels: bricks divide the volume, so each holds BM.
 constexpr int kCombineThreads = 1024;
 
 __global__ void __launch_bounds__(kCombineThreads)
@@ -322,61 +551,104 @@ conv3d_in_stats_combine_kernel(const float* __restrict__ part_mean,
   }
 }
 
-template <int BM, int BN, bool VEC>
-void launch_conv(dim3 grid, cudaStream_t st, const void* x, const void* wpk, void* y, float* pm,
-                 float* p2, int D, int H, int W, int Ci, int Co, int K, int K_pad, int Co_pad) {
-  conv3d_in_stats_kernel<BM, BN, VEC><<<grid, kThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wpk),
-      static_cast<__nv_bfloat16*>(y), pm, p2, D, H, W, Ci, Co, K, K_pad, Co_pad);
+struct Args {
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* wpk;
+  __nv_bfloat16* y;
+  float *pm, *p2, *ws;
+  int B, D, H, W, Ci, Co, K, K_pad, Co_pad;
+};
+
+template <int BM, int BN>
+cudaError_t launch_tiles(const Args& a, int route, int m_tiles, int td, int th, int splits,
+                         int k_steps, int smem_bytes, cudaStream_t st) {
+  const dim3 grid((a.Co + BN - 1) / BN, m_tiles, a.B);
+  if (route == kBrick) {
+    // raise the dynamic shared memory limit of this instance once per size
+    static int allowed = 48 * 1024;
+    if (smem_bytes > allowed) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          conv3d_brick_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      if (e != cudaSuccess) return e;
+      allowed = smem_bytes;
+    }
+    conv3d_brick_kernel<BM, BN><<<grid, kThreads, smem_bytes, st>>>(
+        a.x, a.wpk, a.y, a.pm, a.p2, a.D, a.H, a.W, a.Ci, a.Co, a.Co_pad, td, th,
+        a.Ci / 32 > 1 ? 2 : 1);
+  } else if (route == kSplitK) {
+    conv3d_in_stats_kernel<BM, BN, true, true>
+        <<<dim3(grid.x, grid.y, a.B * splits), kThreads, 0, st>>>(
+            a.x, a.wpk, a.y, a.pm, a.p2, a.ws, a.D, a.H, a.W, a.Ci, a.Co, a.K, a.K_pad, a.Co_pad,
+            splits, k_steps);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    conv3d_split_finish_kernel<BM, BN><<<grid, kThreads, 0, st>>>(
+        a.ws, a.y, a.pm, a.p2, a.B, a.D * a.H * a.W, a.Co, splits);
+  } else if (a.Ci % 8 == 0) {
+    conv3d_in_stats_kernel<BM, BN, true, false><<<grid, kThreads, 0, st>>>(
+        a.x, a.wpk, a.y, a.pm, a.p2, nullptr, a.D, a.H, a.W, a.Ci, a.Co, a.K, a.K_pad, a.Co_pad,
+        1, 0);
+  } else {
+    conv3d_in_stats_kernel<BM, BN, false, false><<<grid, kThreads, 0, st>>>(
+        a.x, a.wpk, a.y, a.pm, a.p2, nullptr, a.D, a.H, a.W, a.Ci, a.Co, a.K, a.K_pad, a.Co_pad,
+        1, 0);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Tile sizes the caller needs to allocate the partials and pack the
-// weights: which 0 -> voxels per tile for `co` output channels, 1 -> BK (K
-// padding), 2 -> Co padding of the packed weights.
-extern "C" int conv3d_in_stats_tile(int which, int co) {
-  return which == 0 ? tile_m(co) : which == 1 ? BK : CO_ALIGN;
-}
-
 // x [B, D, H, W, Ci] bf16; wpk [K_pad, Co_pad] bf16 with row k = tap * Ci + ci
-// (tap = (dz * 3 + dy) * 3 + dx), zero beyond K = 27 * Ci and beyond Co;
-// y [B, D, H, W, Co] bf16; part_mean, part_m2 [B, ceil(D*H*W / BM), Co] f32
-// scratch, BM = conv3d_in_stats_tile(0, Co); mean, var [B, Co] f32. All
-// contiguous on the device. Launches the conv and the combine on `stream`
-// and returns cudaGetLastError().
+// (tap = (dz * 3 + dy) * 3 + dx), zero beyond K = 27 * Ci and beyond Co,
+// K_pad a multiple of 32 and Co_pad of 64; y [B, D, H, W, Co] bf16;
+// part_mean, part_m2 [B, m_tiles, Co] f32 scratch; ws the split-K workspace
+// [splits, B, m_tiles * bm, ceil(Co / bn) * bn] f32 (null on the other
+// routes); mean, var [B, Co] f32. All contiguous on the device. The plan
+// (route 0 im2col, 1 split_k, 2 brick; bm voxels per tile, 256 for Co % 64
+// != 0 and 128 otherwise; the brick's td x th x 16; splits of k_steps K
+// steps; the brick's dynamic shared memory) comes from
+// ops/conv_in_stats.py::plan_conv and is checked for range only. Launches
+// the conv (and the split-K finish) and the combine on `stream`; returns
+// cudaGetLastError() or the first error.
 extern "C" int conv3d_in_stats_launch(const void* x, const void* wpk, int B, int D, int H, int W,
-                                      int Ci, int Co, int K_pad, int Co_pad, void* y,
-                                      void* part_mean, void* part_m2, void* mean, void* var,
-                                      void* stream) {
+                                      int Ci, int Co, int K_pad, int Co_pad, int route, int bm,
+                                      int td, int th, int splits, int k_steps, int smem_bytes,
+                                      void* y, void* part_mean, void* part_m2, void* ws,
+                                      void* mean, void* var, void* stream) {
   const int K = 27 * Ci;
   const int M = D * H * W;
+  const int n_k = K_pad / BK;
   if (B < 1 || M < 1 || Ci < 1 || Co < 2 || Co % 2 || K_pad != (K + BK - 1) / BK * BK ||
-      Co_pad != (Co + CO_ALIGN - 1) / CO_ALIGN * CO_ALIGN || B > 65535)
+      Co_pad != (Co + CO_ALIGN - 1) / CO_ALIGN * CO_ALIGN || B > 65535 || bm != tile_m(Co))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int BM = tile_m(Co);
-  const int m_tiles = (M + BM - 1) / BM;
-  if (m_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* pm = static_cast<float*>(part_mean);
-  float* p2 = static_cast<float*>(part_m2);
-  const bool vec = Ci % 8 == 0;
-  if (BM == 128) {
-    const dim3 grid(Co / 64, m_tiles, B);
-    if (vec)
-      launch_conv<128, 64, true>(grid, st, x, wpk, y, pm, p2, D, H, W, Ci, Co, K, K_pad, Co_pad);
-    else
-      launch_conv<128, 64, false>(grid, st, x, wpk, y, pm, p2, D, H, W, Ci, Co, K, K_pad, Co_pad);
-  } else {
-    const dim3 grid((Co + 31) / 32, m_tiles, B);
-    if (vec)
-      launch_conv<256, 32, true>(grid, st, x, wpk, y, pm, p2, D, H, W, Ci, Co, K, K_pad, Co_pad);
-    else
-      launch_conv<256, 32, false>(grid, st, x, wpk, y, pm, p2, D, H, W, Ci, Co, K, K_pad, Co_pad);
+  const int bn = 8192 / bm;
+  int m_tiles = (M + bm - 1) / bm;
+  if (route == kBrick) {
+    const int nbuf = Ci / 32 > 1 ? 2 : 1;
+    const int need = nbuf * (td + 2) * (th + 2) * HALO_W * PITCH * 2 + 2 * BK * (bn + 8) * 2;
+    if (Ci % 32 || W % BRICK_W || td < 1 || th < 1 || td * th * BRICK_W != bm || D % td ||
+        H % th || smem_bytes < need || smem_bytes < bm * (bn + 4) * 4 ||
+        smem_bytes > kMaxSmem - 2048)
+      return static_cast<int>(cudaErrorInvalidValue);
+    m_tiles = (D / td) * (H / th) * (W / BRICK_W);
+  } else if (route == kSplitK) {
+    if (Ci % 8 || splits < 1 || k_steps < 1 || (splits - 1) * k_steps >= n_k ||
+        splits * k_steps < n_k || ws == nullptr || static_cast<int64_t>(B) * splits > 65535)
+      return static_cast<int>(cudaErrorInvalidValue);
+  } else if (route != kIm2col) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaGetLastError();
+  if (m_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wpk),
+               static_cast<__nv_bfloat16*>(y), static_cast<float*>(part_mean),
+               static_cast<float*>(part_m2), static_cast<float*>(ws), B, D, H, W, Ci, Co, K,
+               K_pad, Co_pad};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = bm == 128
+      ? launch_tiles<128, 64>(a, route, m_tiles, td, th, splits, k_steps, smem_bytes, st)
+      : launch_tiles<256, 32>(a, route, m_tiles, td, th, splits, k_steps, smem_bytes, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   conv3d_in_stats_combine_kernel<<<dim3(B, (Co + 31) / 32), kCombineThreads, 0, st>>>(
-      pm, p2, static_cast<float*>(mean), static_cast<float*>(var), m_tiles, M, Co, BM);
+      a.pm, a.p2, static_cast<float*>(mean), static_cast<float*>(var), m_tiles, M, Co, bm);
   return static_cast<int>(cudaGetLastError());
 }

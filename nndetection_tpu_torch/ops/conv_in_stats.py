@@ -11,8 +11,9 @@
   (``pallas_conv.py:123``, its ``_kernel`` ``:68``): ``y = conv3d(x, w)``,
   SAME, NDHWC, bf16 in and out with float32 accumulation, and the per-(b, c)
   mean and biased variance of the rounded ``y`` over all voxels. A CUDA
-  tensor launches the CUDA C++ kernel of ``csrc/conv3d_in_stats.cu``; a CPU
-  tensor runs :func:`conv3d_in_stats_plain`.
+  tensor launches the CUDA C++ kernel of ``csrc/conv3d_in_stats.cu`` on the
+  route :func:`plan_conv` picks (a halo brick in shared memory, split-K, or
+  the im2col gather); a CPU tensor runs :func:`conv3d_in_stats_plain`.
 * :class:`ConvInstanceNormFunction` is conv + instance norm as one
   ``torch.autograd.Function``: the forward is the fused kernel and the
   affine apply (``in_apply``) with the conv's statistics; the backward folds
@@ -27,7 +28,8 @@
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,7 +45,137 @@ from nndetection_tpu_torch.ops.instance_norm import (
 _BLOCK_BYTES = 2 * 1024 * 1024
 
 _launch_fn = None
-_tile_fn = None
+_n_sms = {}
+
+# the kernel's tiling (csrc/conv3d_in_stats.cu): K step, Co padding of the
+# packed weights, a brick's run of w, the halo brick's bf16 voxel pitch
+BK = 32
+CO_ALIGN = 64
+BRICK_W = 16
+PITCH = 48
+# shared memory one block may use on the H100, and what the kernel keeps
+# of it for its static arrays
+SMEM_MAX = 232_448
+SMEM_STATIC = 2048
+# the route numbers of the C entry point
+ROUTES = {"im2col": 0, "split_k": 1, "brick": 2}
+# brick shapes (Td, Th) per output-channel tile, least halo first: Td*Th*16
+# voxels, 256 for 32-channel tiles and 128 for 64-channel ones
+BRICKS = {32: ((4, 4), (2, 8), (8, 2), (1, 16), (16, 1)),
+          64: ((2, 4), (4, 2), (1, 8), (8, 1))}
+# split-K keeps at least this many K steps per split
+MIN_SPLIT_STEPS = 8
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """How the kernel tiles one conv: ``route`` ("brick", "split_k" or
+    "im2col"), ``bm`` voxels x ``bn`` output channels per block, the grid
+    ``n_tiles x m_tiles x batch`` (times ``splits`` on the split-K route), the
+    brick ``td x th x 16`` (0 off the brick route), ``splits`` K ranges of
+    ``k_steps`` steps of :data:`BK`, the dynamic shared memory and the
+    split-K workspace in bytes."""
+
+    route: str
+    x_shape: Tuple[int, int, int, int, int]
+    co: int
+    bm: int
+    bn: int
+    n_tiles: int
+    m_tiles: int
+    td: int = 0
+    th: int = 0
+    splits: int = 1
+    k_steps: int = 0
+    smem_bytes: int = 0
+    ws_bytes: int = 0
+
+    @property
+    def blocks(self) -> int:
+        return self.n_tiles * self.m_tiles * self.x_shape[0] * self.splits
+
+    def k_ranges(self) -> List[Tuple[int, int]]:
+        """``[k_begin, k_end)`` of each split, in K elements."""
+        n_k = k_pad(self.x_shape[4]) // BK
+        return [(s * self.k_steps * BK, min(n_k, (s + 1) * self.k_steps) * BK)
+                for s in range(self.splits)]
+
+    def tile_voxels(self, mt: int) -> torch.Tensor:
+        """The flat voxel indices (within one batch item) of the rows of
+        m tile ``mt`` that exist, in row order, as the kernel decodes them."""
+        _, d, h, w, _ = self.x_shape
+        r = torch.arange(self.bm)
+        if self.route != "brick":
+            m = mt * self.bm + r
+            return m[m < d * h * w]
+        bw, bh = w // BRICK_W, h // self.th
+        w0, h0 = (mt % bw) * BRICK_W, (mt // bw) % bh * self.th
+        d0 = mt // (bw * bh) * self.td
+        run = r // BRICK_W
+        return ((d0 + run // self.th) * h + h0 + run % self.th) * w + w0 + r % BRICK_W
+
+
+def k_pad(ci: int) -> int:
+    return -(-27 * ci // BK) * BK
+
+
+def brick_smem_bytes(ci: int, bm: int, bn: int, td: int, th: int) -> int:
+    """The brick route's dynamic shared memory: one halo brick buffer for
+    Ci = 32, two (double-buffered over 32-channel chunks) above, the two
+    weight tiles; at least the f32 output tile that overlays them."""
+    nbuf = 2 if ci > 32 else 1
+    pipe = nbuf * (td + 2) * (th + 2) * (BRICK_W + 2) * PITCH * 2 + 2 * BK * (bn + 8) * 2
+    return max(pipe, bm * (bn + 4) * 4)
+
+
+def plan_conv(x_shape: Sequence[int], co: int, n_sms: int = 132,
+              route: Optional[str] = None) -> ConvPlan:
+    """The kernel's route for ``x [B, D, H, W, Ci] -> Co`` on a card with
+    ``n_sms`` SMs:
+
+    * "brick" when ``Ci % 32 == 0``, ``W % 16 == 0``, a brick divides the
+      volume and the bricks give at least ``n_sms`` blocks;
+    * "split_k" otherwise when ``Ci % 8 == 0`` and the im2col grid is under
+      ``n_sms`` blocks: ``splits`` so that the grid reaches ``n_sms``, each
+      split at least :data:`MIN_SPLIT_STEPS` K steps;
+    * "im2col", the gather of every K step from x, for the rest (the stem).
+
+    ``route`` forces one (to compare the routes on the card), where the
+    shape allows it; a ValueError where it does not.
+    """
+    b, d, h, w, ci = (int(v) for v in x_shape)
+    shape = (b, d, h, w, ci)
+    bn = 64 if co % 64 == 0 else 32
+    bm = 8192 // bn
+    n_tiles = -(-co // bn)
+    n_k = k_pad(ci) // BK
+    if route in (None, "brick") and ci % 32 == 0 and w % BRICK_W == 0:
+        for td, th in BRICKS[bn]:
+            smem = brick_smem_bytes(ci, bm, bn, td, th)
+            if d % td or h % th or smem > SMEM_MAX - SMEM_STATIC:
+                continue
+            m_tiles = (d // td) * (h // th) * (w // BRICK_W)
+            if route or n_tiles * m_tiles * b >= n_sms:
+                return ConvPlan("brick", shape, co, bm, bn, n_tiles, m_tiles, td, th, 1, n_k,
+                                smem)
+            break
+    m_tiles = -(-(d * h * w) // bm)
+    grid = n_tiles * m_tiles * b
+    if route in (None, "split_k") and ci % 8 == 0 and grid < n_sms:
+        splits = min(-(-n_sms // grid), n_k // MIN_SPLIT_STEPS)
+        while splits > 1:  # equal splits, the last one shorter but not too short
+            k_steps = -(-n_k // splits)
+            if n_k - (-(-n_k // k_steps) - 1) * k_steps >= MIN_SPLIT_STEPS:
+                break
+            splits -= 1
+        if splits > 1:
+            splits = -(-n_k // k_steps)  # no empty split
+            ws = splits * b * m_tiles * bm * n_tiles * bn * 4
+            return ConvPlan("split_k", shape, co, bm, bn, n_tiles, m_tiles, 0, 0, splits,
+                            k_steps, 0, ws)
+    if route in (None, "im2col"):
+        return ConvPlan("im2col", shape, co, bm, bn, n_tiles, m_tiles, 0, 0, 1, n_k)
+    raise ValueError(f"no {route} plan for {shape} -> {co} at {n_sms} SMs")
 
 
 def _pick_t(d: int, h: int, w: int, ci: int) -> int:
@@ -92,26 +224,32 @@ def conv3d_in_stats_plain(
 
 
 def _kernel():
-    global _launch_fn, _tile_fn
+    global _launch_fn
     if _launch_fn is None:
-        lib = _build.load()
-        fn = lib.conv3d_in_stats_launch
+        fn = _build.load().conv3d_in_stats_launch
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p,                  # x, packed w
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, D, H, W
             ctypes.c_int, ctypes.c_int,                        # Ci, Co
             ctypes.c_int, ctypes.c_int,                        # K_pad, Co_pad
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # route, bm, td, th
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,          # splits, k_steps, smem bytes
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # y, partials
+            ctypes.c_void_p,                                   # split-K workspace
             ctypes.c_void_p, ctypes.c_void_p,                  # mean, var
             ctypes.c_void_p,                                   # stream
         ]
         fn.restype = ctypes.c_int
-        tile = lib.conv3d_in_stats_tile  # (0: voxels per tile, 1: K step, 2: Co alignment; Co)
-        tile.argtypes = [ctypes.c_int, ctypes.c_int]
-        tile.restype = ctypes.c_int
-        _tile_fn = tile
         _launch_fn = fn
     return _launch_fn
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's number of SMs (cached per device)."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _n_sms:
+        _n_sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _n_sms[idx]
 
 
 def pack_weight(w: torch.Tensor, k_align: int, co_align: int) -> torch.Tensor:
@@ -127,7 +265,7 @@ def pack_weight(w: torch.Tensor, k_align: int, co_align: int) -> torch.Tensor:
     return out
 
 
-def _conv3d_in_stats_cuda(x, w):
+def _conv3d_in_stats_cuda(x, w, plan: Optional[ConvPlan] = None):
     if x.dim() != 5 or w.shape[:3] != (3, 3, 3) or w.dim() != 5 or w.shape[3] != x.shape[4]:
         raise ValueError(f"conv3d_in_stats takes x [B, D, H, W, Ci] and w [3, 3, 3, Ci, Co], "
                          f"got {tuple(x.shape)} and {tuple(w.shape)}")
@@ -141,34 +279,42 @@ def _conv3d_in_stats_cuda(x, w):
     co = w.shape[4]
     if co % 2:
         raise ValueError(f"conv3d_in_stats takes an even number of output channels, got {co}")
+    if plan is None:
+        plan = plan_conv(x.shape, co, sm_count(x.device))
+    elif plan.x_shape != tuple(x.shape) or plan.co != co:
+        raise ValueError(f"a plan for {plan.x_shape} -> {plan.co}, "
+                         f"called on {tuple(x.shape)} -> {co}")
     fn = _kernel()
-    bm, bk, co_align = (_tile_fn(i, co) for i in range(3))
-    wpk = pack_weight(w, bk, co_align)
-    m_tiles = -(-(d * h * wd) // bm)
+    wpk = pack_weight(w, BK, CO_ALIGN)
     y = torch.empty((b, d, h, wd, co), dtype=torch.bfloat16, device=x.device)
-    part = torch.empty((2, b, m_tiles, co), dtype=torch.float32, device=x.device)
+    part = torch.empty((2, b, plan.m_tiles, co), dtype=torch.float32, device=x.device)
     mean, var = torch.empty((2, b, co), dtype=torch.float32, device=x.device)
+    ws = (torch.empty(plan.ws_bytes // 4, dtype=torch.float32, device=x.device)
+          if plan.ws_bytes else None)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), wpk.data_ptr(), b, d, h, wd, ci, co, wpk.shape[0], wpk.shape[1],
-                 y.data_ptr(), part[0].data_ptr(), part[1].data_ptr(), mean.data_ptr(),
-                 var.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                 ROUTES[plan.route], plan.bm, plan.td, plan.th, plan.splits, plan.k_steps,
+                 plan.smem_bytes, y.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+                 None if ws is None else ws.data_ptr(), mean.data_ptr(), var.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
     _build.check(err, "conv3d_in_stats_launch")
     LAUNCHES["conv3d_in_stats"] += 1
     return y, mean, var
 
 
 def conv3d_in_stats(
-    x: torch.Tensor, w: torch.Tensor
+    x: torch.Tensor, w: torch.Tensor, plan: Optional[ConvPlan] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``y = conv3d(x, w)`` (bf16, SAME, stride 1) of ``x [B, D, H, W, Ci]``
     and ``w [3, 3, 3, Ci, Co]``, plus the per-(b, c) float32 mean and
-    variance of ``y``: the CUDA kernel for a CUDA ``x`` (bf16, contiguous),
+    variance of ``y``: the CUDA kernel for a CUDA ``x`` (bf16, contiguous) on
+    the route of ``plan`` (default :func:`plan_conv` for the card),
     :func:`conv3d_in_stats_plain` for a CPU one. No gradient: see
     :class:`ConvInstanceNormFunction`."""
     if x.device.type == "cpu":
         return conv3d_in_stats_plain(x, w)
     if x.device.type == "cuda":
-        return _conv3d_in_stats_cuda(x, w)
+        return _conv3d_in_stats_cuda(x, w, plan)
     raise NotImplementedError(f"conv3d_in_stats has no kernel for {x.device}")
 
 
