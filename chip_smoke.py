@@ -501,7 +501,7 @@ def conv_kernel_checks(device, shapes=CONV_SHAPES, train=CONV_TRAIN, tiny=TINY_F
     one JSON line holds every shape's route and times. The summary is the
     train batch's stage 0b."""
     from nndetection_tpu_torch.ops.conv_in_stats import (
-        conv3d_in_stats, conv3d_in_stats_plain, plan_conv, sm_count)
+        BRICK_PIPELINES, conv3d_in_stats, conv3d_in_stats_plain, plan_conv, sm_count)
 
     n_sms = sm_count(device)
     gd = torch.Generator(device=device).manual_seed(2)
@@ -517,7 +517,8 @@ def conv_kernel_checks(device, shapes=CONV_SHAPES, train=CONV_TRAIN, tiny=TINY_F
         y, mean, var, e = conv_check(x, w)
         err = max(err, e)
         name = (f"conv3d_in_stats {list(xs)} -> {co} {plan.route}"
-                + (f" {plan.td}x{plan.th}x16" if plan.route == "brick" else "")
+                + (f" {plan.td}x{plan.th}x16, {plan.taps} taps x {plan.stages}"
+                   if plan.route == "brick" else "")
                 + (f" {plan.splits} splits" if plan.route == "split_k" else ""))
         if i >= len(luna):
             log(f"[kernels] {name}: err {e:.2e}")
@@ -533,6 +534,11 @@ def conv_kernel_checks(device, shapes=CONV_SHAPES, train=CONV_TRAIN, tiny=TINY_F
             alts["im2col"] = plan_conv(xs, co, n_sms, route="im2col")
         if plan.route == "split_k":
             alts["split_k x2"] = plan_conv(xs, co, 2 * n_sms, route="split_k")
+        if plan.route == "brick":
+            for taps, stages in BRICK_PIPELINES:
+                if (taps, stages) != (plan.taps, plan.stages):
+                    alts[f"brick {taps} taps x {stages}"] = plan_conv(
+                        xs, co, n_sms, brick_pipeline=(taps, stages))
         for label, alt in alts.items():
             err = max(err, conv_check(x, w, alt)[3])
         ms = median_ms(lambda: conv3d_in_stats(x, w), reps)
@@ -548,6 +554,7 @@ def conv_kernel_checks(device, shapes=CONV_SHAPES, train=CONV_TRAIN, tiny=TINY_F
             f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
         rows.append(dict(shape=list(xs), co=co, route=plan.route, splits=plan.splits,
                          brick=[plan.td, plan.th, 16] if plan.route == "brick" else None,
+                         pipeline=[plan.taps, plan.stages] if plan.route == "brick" else None,
                          ms=ms, other_routes_ms=alt_ms, plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=b["bound_ms"], bound_by=b["bound_by"]))
         if i == len(shapes):

@@ -78,22 +78,29 @@ constexpr int BRICK_W = 16;   // a brick's run of consecutive w
 constexpr int HALO_W = BRICK_W + 2;
 constexpr int PITCH = 48;     // bf16 per voxel of the halo brick: 32 channels + 16
 constexpr int kMaxSmem = 232448;  // dynamic + static shared memory of one block
+constexpr int kStaticSmem = 2048;  // kept for the epilogue's static arrays
+// im2col and split-K: A and B tiles double buffered, one K step loading
+// ahead (a deeper ring measured slower: it costs blocks per SM)
+constexpr int kIm2colStages = 2;
 
 enum Route { kIm2col = 0, kSplitK = 1, kBrick = 2 };
 
 // voxels per tile for Co: 128 with 64-channel tiles, 256 with 32-channel ones
 inline int tile_m(int co) { return co % 64 == 0 ? 128 : 256; }
 
-template <int BM, int BN>
-struct Smem {
-  static constexpr int LDB = BN + 8;  // bf16 row pitch of the B tile
-  static constexpr int LDC = BN + 4;  // f32 row pitch of the staged output
-  static constexpr int A_ELEMS = BM * LDA;
-  static constexpr int B_ELEMS = BK * LDB;
-  static constexpr int PIPE_BYTES = 2 * (A_ELEMS + B_ELEMS) * 2;
-  static constexpr int C_BYTES = BM * LDC * 4;
-  static constexpr int BYTES = PIPE_BYTES > C_BYTES ? PIPE_BYTES : C_BYTES;
-};
+// dynamic shared memory of each route: the ring of stages, at least the
+// f32 output tile [BM][BN + 4] that overlays it after the K loop
+inline int c_tile_bytes(int bm, int bn) { return bm * (bn + 4) * 4; }
+inline int im2col_smem(int bm, int bn) {
+  const int pipe = kIm2colStages * (bm * LDA + BK * (bn + 8)) * 2;
+  return pipe > c_tile_bytes(bm, bn) ? pipe : c_tile_bytes(bm, bn);
+}
+// the brick route: nbuf halo bricks, a ring of `stages` weight buffers of
+// `taps` taps each
+inline int brick_smem(int bm, int bn, int td, int th, int nbuf, int taps, int stages) {
+  const int pipe = nbuf * (td + 2) * (th + 2) * HALO_W * PITCH * 2 + stages * taps * BK * (bn + 8) * 2;
+  return pipe > c_tile_bytes(bm, bn) ? pipe : c_tile_bytes(bm, bn);
+}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -102,7 +109,8 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
                "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
+template <int N>  // at most N of the latest groups still in flight
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
 
 // B tile of K step kt: BK rows x BN channels of the packed weights from row
@@ -194,7 +202,8 @@ __device__ __forceinline__ Voxel voxel_of(int m, int M, int H, int W) {
 
 // SPLIT: blockIdx.z = b * splits + split, K steps [split * k_steps, +k_steps)
 // of n_k, the f32 tile into ws [splits, B, m_tiles * BM, gridDim.x * BN];
-// otherwise all K steps and the epilogue.
+// otherwise all K steps and the epilogue. A and B tiles in a ring of
+// kIm2colStages buffers of dynamic shared memory.
 template <int BM, int BN, bool VEC, bool SPLIT>
 __global__ void __launch_bounds__(kThreads)
 conv3d_in_stats_kernel(const __nv_bfloat16* __restrict__ x,   // [B, D, H, W, Ci]
@@ -205,16 +214,18 @@ conv3d_in_stats_kernel(const __nv_bfloat16* __restrict__ x,   // [B, D, H, W, Ci
                        float* __restrict__ ws,                // split-K workspace
                        int D, int H, int W, int Ci, int Co, int K, int K_pad, int Co_pad,
                        int splits, int k_steps) {
-  using S = Smem<BM, BN>;
   constexpr int WARPS_N = BN / 32, WARPS_M = BM / 32;  // 8 warps of 32 x 32
   static_assert(WARPS_M * WARPS_N * 32 == kThreads, "eight warps");
   static_assert(!SPLIT || VEC, "split-K takes the vector gather");
   constexpr int FM = 2, FN = 2;
   constexpr int A_PASSES = BM / 64;  // 16-byte A chunks per thread and step
-  __shared__ __align__(128) unsigned char smem_raw[S::BYTES];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][BM][LDA]
-  __nv_bfloat16* Bs = As + 2 * S::A_ELEMS;                         // [2][BK][LDB]
-  float* Cs = reinterpret_cast<float*>(smem_raw);                  // [BM][LDC], after the K loop
+  constexpr int LDB = BN + 8, LDC = BN + 4;
+  constexpr int A_ELEMS = BM * LDA, B_ELEMS = BK * LDB;
+  constexpr int NST = kIm2colStages, LA = NST - 1;  // K steps loading ahead
+  extern __shared__ __align__(128) unsigned char smem_dyn[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_dyn);  // [NST][BM][LDA]
+  __nv_bfloat16* Bs = As + NST * A_ELEMS;                          // [NST][BK][LDB]
+  float* Cs = reinterpret_cast<float*>(smem_dyn);                  // [BM][LDC], after the K loop
 
   const int n0 = blockIdx.x * BN;
   const int mt = blockIdx.y;
@@ -240,7 +251,7 @@ conv3d_in_stats_kernel(const __nv_bfloat16* __restrict__ x,   // [B, D, H, W, Ci
   const Voxel sv = voxel_of(m0 + tid, tid < BM ? M : 0, H, W);
 
   auto load_tile = [&](int kt, int buf) {
-    __nv_bfloat16* as = As + buf * S::A_ELEMS;
+    __nv_bfloat16* as = As + buf * A_ELEMS;
     if constexpr (VEC) {
       const int k0 = kt * BK + a_kc * 8;
       const bool k_ok = k0 < K;
@@ -276,7 +287,7 @@ conv3d_in_stats_kernel(const __nv_bfloat16* __restrict__ x,   // [B, D, H, W, Ci
         }
       }
     }
-    load_b_tile<BN>(Bs + buf * S::B_ELEMS, wpk, kt * BK, n0, Co_pad, tid);
+    load_b_tile<BN>(Bs + buf * B_ELEMS, wpk, kt * BK, n0, Co_pad, tid);
   };
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
@@ -288,16 +299,20 @@ conv3d_in_stats_kernel(const __nv_bfloat16* __restrict__ x,   // [B, D, H, W, Ci
   const int n_k = K_pad / BK;
   const int kt0 = split * k_steps;
   const int kt1 = SPLIT ? min(n_k, kt0 + k_steps) : n_k;
-  load_tile(kt0, 0);
-  cp_async_commit();
+  // one cp.async group per K step, possibly empty: the count stays regular
+#pragma unroll
+  for (int i = 0; i < LA; ++i) {
+    if (kt0 + i < kt1) load_tile(kt0 + i, i);
+    cp_async_commit();
+  }
   for (int kt = kt0; kt < kt1; ++kt) {
-    const int buf = (kt - kt0) & 1;
-    if (kt + 1 < kt1) load_tile(kt + 1, buf ^ 1);
-    cp_async_commit();  // possibly empty: keeps the group count regular
-    cp_async_wait1();   // this step's group has landed
+    const int step = kt - kt0;
+    if (kt + LA < kt1) load_tile(kt + LA, (step + LA) % NST);
+    cp_async_commit();
+    cp_async_wait<LA>();  // this step's group has landed
     __syncthreads();
-    const __nv_bfloat16* as = As + buf * S::A_ELEMS;
-    const __nv_bfloat16* bs = Bs + buf * S::B_ELEMS;
+    const __nv_bfloat16* as = As + (step % NST) * A_ELEMS;
+    const __nv_bfloat16* bs = Bs + (step % NST) * B_ELEMS;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[FM];
@@ -307,7 +322,7 @@ conv3d_in_stats_kernel(const __nv_bfloat16* __restrict__ x,   // [B, D, H, W, Ci
         wmma::load_matrix_sync(fa[i], as + (wm * FM * 16 + i * 16) * LDA + kk, LDA);
 #pragma unroll
       for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(fb[j], bs + kk * S::LDB + wn * FN * 16 + j * 16, S::LDB);
+        wmma::load_matrix_sync(fb[j], bs + kk * LDB + wn * FN * 16 + j * 16, LDB);
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -332,8 +347,8 @@ conv3d_in_stats_kernel(const __nv_bfloat16* __restrict__ x,   // [B, D, H, W, Ci
     for (int i = 0; i < FM; ++i)
 #pragma unroll
       for (int j = 0; j < FN; ++j)
-        wmma::store_matrix_sync(Cs + (wm * FM * 16 + i * 16) * S::LDC + wn * FN * 16 + j * 16,
-                                acc[i][j], S::LDC, wmma::mem_row_major);
+        wmma::store_matrix_sync(Cs + (wm * FM * 16 + i * 16) * LDC + wn * FN * 16 + j * 16,
+                                acc[i][j], LDC, wmma::mem_row_major);
     __syncthreads();
     tile_epilogue<BM, BN>(
         Cs, min(BM, M - m0), [m0](int r) { return static_cast<int64_t>(m0 + r); },
@@ -378,10 +393,12 @@ conv3d_split_finish_kernel(const float* __restrict__ ws, __nv_bfloat16* __restri
 
 // ------------------------------------------------------------------- brick
 // Halo brick of Td x Th x 16 output voxels (blockIdx.y, bricks in w fastest,
-// then h, then d; they divide the volume). Dynamic shared memory:
-// [nbuf][(Td+2)(Th+2)18][PITCH] bf16 bricks, then [2][BK][BN + 8] bf16
-// weights; the f32 output tile overlays the bricks after the K loop.
-template <int BM, int BN>
+// then h, then d; they divide the volume). A step runs TPS taps of one
+// 32-channel chunk between two barriers. Dynamic shared memory:
+// [nbuf][(Td+2)(Th+2)18][PITCH] bf16 bricks, then a ring of NSTB weight
+// buffers [TPS][BK][BN + 8] bf16, NSTB - 1 steps loading ahead; the f32
+// output tile overlays them after the K loop.
+template <int BM, int BN, int TPS, int NSTB>
 __global__ void __launch_bounds__(kThreads)
 conv3d_brick_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wpk,
                     __nv_bfloat16* __restrict__ y, float* __restrict__ part_mean,
@@ -390,7 +407,13 @@ conv3d_brick_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
   constexpr int WARPS_N = BN / 32, WARPS_M = BM / 32;
   static_assert(WARPS_M * WARPS_N * 32 == kThreads, "eight warps");
   constexpr int FM = 2, FN = 2;
-  constexpr int LDB = BN + 8, B_ELEMS = BK * LDB;
+  constexpr int LDB = BN + 8, B_ELEMS = BK * LDB, B_STEP = TPS * B_ELEMS;
+  constexpr int SPC = 27 / TPS;   // steps per chunk
+  constexpr int LA = NSTB - 1;    // steps loading ahead
+  // the next chunk's brick arrives over the first NEXT steps of this one,
+  // so that its last piece has landed when the next chunk starts
+  constexpr int NEXT = SPC + 1 - LA;
+  static_assert(SPC * TPS == 27 && NEXT >= 1 && LA >= 1 && LA < SPC, "taps per step, stages");
   extern __shared__ __align__(128) unsigned char smem_dyn[];
   const int halo_h = Th + 2;
   const int nv = (Td + 2) * halo_h * HALO_W;  // voxels of one halo brick
@@ -420,9 +443,9 @@ conv3d_brick_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
   }
 
   const int n_chunks = Ci / 32;
-  const int n_steps = n_chunks * 27;
-  const int pieces = nv * 4;                // 16-byte pieces of one brick
-  const int per_tap = (pieces + 26) / 27;  // the next brick's pieces per tap
+  const int n_steps = n_chunks * SPC;
+  const int pieces = nv * 4;  // 16-byte pieces of one brick
+  const int per_step = (pieces + NEXT - 1) / NEXT;
 
   auto load_brick = [&](int chunk, int buf, int begin, int end) {
     __nv_bfloat16* dst = bricks + buf * brick_elems;
@@ -436,10 +459,13 @@ conv3d_brick_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
       cp_async16(dst + v * PITCH + q * 8, src, ok);
     }
   };
-  // the weights of step s: tap s % 27 of chunk s / 27
+  // the weights of step s: taps (s % SPC) * TPS, ... of chunk s / SPC
   auto load_b = [&](int s, int buf) {
-    const int chunk = s / 27, tap = s - chunk * 27;
-    load_b_tile<BN>(Bs + buf * B_ELEMS, wpk, tap * Ci + chunk * 32, n0, Co_pad, tid);
+    const int chunk = s / SPC, tap0 = (s - chunk * SPC) * TPS;
+#pragma unroll
+    for (int t = 0; t < TPS; ++t)
+      load_b_tile<BN>(Bs + buf * B_STEP + t * B_ELEMS, wpk, (tap0 + t) * Ci + chunk * 32, n0,
+                      Co_pad, tid);
   };
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
@@ -448,23 +474,29 @@ conv3d_brick_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
 #pragma unroll
     for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
+  // one cp.async group per step (n_steps >= SPC > LA); the first holds the
+  // first chunk's brick
   load_brick(0, 0, 0, pieces);
-  load_b(0, 0);
-  cp_async_commit();
-  for (int s = 0; s < n_steps; ++s) {
-    const int chunk = s / 27, tap = s - chunk * 27;
-    if (s + 1 < n_steps) load_b(s + 1, (s + 1) & 1);
-    if (chunk + 1 < n_chunks)
-      load_brick(chunk + 1, (chunk + 1) % nbuf, tap * per_tap, min(pieces, (tap + 1) * per_tap));
-    cp_async_commit();
-    cp_async_wait1();  // this step's weights, and at tap 0 the whole brick, have landed
-    __syncthreads();
-    const __nv_bfloat16* br =
-        bricks + (chunk % nbuf) * brick_elems +
-        (((tap / 9) * halo_h + (tap / 3) % 3) * HALO_W + tap % 3) * PITCH;
-    const __nv_bfloat16* bs = Bs + (s & 1) * B_ELEMS;
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
+  for (int i = 0; i < LA; ++i) {
+    load_b(i, i);
+    cp_async_commit();
+  }
+  for (int s = 0; s < n_steps; ++s) {
+    const int chunk = s / SPC, ls = s - chunk * SPC;
+    if (s + LA < n_steps) load_b(s + LA, (s + LA) % NSTB);
+    if (chunk + 1 < n_chunks && ls < NEXT)
+      load_brick(chunk + 1, (chunk + 1) & 1, ls * per_step, min(pieces, (ls + 1) * per_step));
+    cp_async_commit();
+    cp_async_wait<LA>();  // this step's weights, and at its first step the chunk's brick
+    __syncthreads();
+#pragma unroll
+    for (int kt = 0; kt < TPS * BK / 16; ++kt) {
+      const int tap = ls * TPS + kt / 2, kk = (kt & 1) * 16;
+      const __nv_bfloat16* br =
+          bricks + (chunk & 1) * brick_elems +
+          (((tap / 9) * halo_h + (tap / 3) % 3) * HALO_W + tap % 3) * PITCH;
+      const __nv_bfloat16* bs = Bs + (s % NSTB) * B_STEP + (kt / 2) * B_ELEMS;
       wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[FM];
       wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[FN];
 #pragma unroll
@@ -559,41 +591,66 @@ struct Args {
   int B, D, H, W, Ci, Co, K, K_pad, Co_pad;
 };
 
+// raise the dynamic shared memory limit of one kernel instance, once per
+// larger size (`allowed` is the instance's own)
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, int& allowed) {
+  if (bytes <= allowed) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) allowed = bytes;
+  return e;
+}
+
+template <int BM, int BN, bool VEC, bool SPLIT>
+cudaError_t launch_im2col(const Args& a, dim3 grid, int splits, int k_steps, int smem_bytes,
+                          cudaStream_t st) {
+  static int allowed = 48 * 1024;
+  const auto kernel = conv3d_in_stats_kernel<BM, BN, VEC, SPLIT>;
+  const cudaError_t e = allow_smem(kernel, smem_bytes, allowed);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kThreads, smem_bytes, st>>>(a.x, a.wpk, a.y, a.pm, a.p2, a.ws, a.D, a.H, a.W,
+                                             a.Ci, a.Co, a.K, a.K_pad, a.Co_pad, splits, k_steps);
+  return cudaGetLastError();
+}
+
+template <int BM, int BN, int TPS, int NSTB>
+cudaError_t launch_brick(const Args& a, dim3 grid, int td, int th, int smem_bytes,
+                         cudaStream_t st) {
+  static int allowed = 48 * 1024;
+  const auto kernel = conv3d_brick_kernel<BM, BN, TPS, NSTB>;
+  const cudaError_t e = allow_smem(kernel, smem_bytes, allowed);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kThreads, smem_bytes, st>>>(a.x, a.wpk, a.y, a.pm, a.p2, a.D, a.H, a.W, a.Ci,
+                                             a.Co, a.Co_pad, td, th, a.Ci / 32 > 1 ? 2 : 1);
+  return cudaGetLastError();
+}
+
+// the brick's (taps per step, weight stages) instances
+inline bool brick_pipeline_ok(int taps, int stages) {
+  return (taps == 1 && stages == 4) || (taps == 3 && stages == 2) || (taps == 9 && stages == 2);
+}
+
 template <int BM, int BN>
-cudaError_t launch_tiles(const Args& a, int route, int m_tiles, int td, int th, int splits,
-                         int k_steps, int smem_bytes, cudaStream_t st) {
+cudaError_t launch_tiles(const Args& a, int route, int m_tiles, int td, int th, int taps,
+                         int stages, int splits, int k_steps, int smem_bytes, cudaStream_t st) {
   const dim3 grid((a.Co + BN - 1) / BN, m_tiles, a.B);
   if (route == kBrick) {
-    // raise the dynamic shared memory limit of this instance once per size
-    static int allowed = 48 * 1024;
-    if (smem_bytes > allowed) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          conv3d_brick_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-      if (e != cudaSuccess) return e;
-      allowed = smem_bytes;
-    }
-    conv3d_brick_kernel<BM, BN><<<grid, kThreads, smem_bytes, st>>>(
-        a.x, a.wpk, a.y, a.pm, a.p2, a.D, a.H, a.W, a.Ci, a.Co, a.Co_pad, td, th,
-        a.Ci / 32 > 1 ? 2 : 1);
-  } else if (route == kSplitK) {
-    conv3d_in_stats_kernel<BM, BN, true, true>
-        <<<dim3(grid.x, grid.y, a.B * splits), kThreads, 0, st>>>(
-            a.x, a.wpk, a.y, a.pm, a.p2, a.ws, a.D, a.H, a.W, a.Ci, a.Co, a.K, a.K_pad, a.Co_pad,
-            splits, k_steps);
-    const cudaError_t e = cudaGetLastError();
+    if (taps == 1) return launch_brick<BM, BN, 1, 4>(a, grid, td, th, smem_bytes, st);
+    if (taps == 3) return launch_brick<BM, BN, 3, 2>(a, grid, td, th, smem_bytes, st);
+    return launch_brick<BM, BN, 9, 2>(a, grid, td, th, smem_bytes, st);
+  }
+  if (route == kSplitK) {
+    const cudaError_t e = launch_im2col<BM, BN, true, true>(
+        a, dim3(grid.x, grid.y, a.B * splits), splits, k_steps, smem_bytes, st);
     if (e != cudaSuccess) return e;
     conv3d_split_finish_kernel<BM, BN><<<grid, kThreads, 0, st>>>(
         a.ws, a.y, a.pm, a.p2, a.B, a.D * a.H * a.W, a.Co, splits);
-  } else if (a.Ci % 8 == 0) {
-    conv3d_in_stats_kernel<BM, BN, true, false><<<grid, kThreads, 0, st>>>(
-        a.x, a.wpk, a.y, a.pm, a.p2, nullptr, a.D, a.H, a.W, a.Ci, a.Co, a.K, a.K_pad, a.Co_pad,
-        1, 0);
-  } else {
-    conv3d_in_stats_kernel<BM, BN, false, false><<<grid, kThreads, 0, st>>>(
-        a.x, a.wpk, a.y, a.pm, a.p2, nullptr, a.D, a.H, a.W, a.Ci, a.Co, a.K, a.K_pad, a.Co_pad,
-        1, 0);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  if (a.Ci % 8 == 0)
+    return launch_im2col<BM, BN, true, false>(a, grid, 1, 0, smem_bytes, st);
+  return launch_im2col<BM, BN, false, false>(a, grid, 1, 0, smem_bytes, st);
 }
 
 }  // namespace
@@ -605,14 +662,16 @@ cudaError_t launch_tiles(const Args& a, int route, int m_tiles, int td, int th, 
 // [splits, B, m_tiles * bm, ceil(Co / bn) * bn] f32 (null on the other
 // routes); mean, var [B, Co] f32. All contiguous on the device. The plan
 // (route 0 im2col, 1 split_k, 2 brick; bm voxels per tile, 256 for Co % 64
-// != 0 and 128 otherwise; the brick's td x th x 16; splits of k_steps K
-// steps; the brick's dynamic shared memory) comes from
+// != 0 and 128 otherwise; the brick's td x th x 16 and its pipeline, `taps`
+// taps per step in a ring of `stages` weight buffers; splits of k_steps K
+// steps; the dynamic shared memory) comes from
 // ops/conv_in_stats.py::plan_conv and is checked for range only. Launches
 // the conv (and the split-K finish) and the combine on `stream`; returns
 // cudaGetLastError() or the first error.
 extern "C" int conv3d_in_stats_launch(const void* x, const void* wpk, int B, int D, int H, int W,
                                       int Ci, int Co, int K_pad, int Co_pad, int route, int bm,
-                                      int td, int th, int splits, int k_steps, int smem_bytes,
+                                      int td, int th, int taps, int stages, int splits,
+                                      int k_steps, int smem_bytes,
                                       void* y, void* part_mean, void* part_m2, void* ws,
                                       void* mean, void* var, void* stream) {
   const int K = 27 * Ci;
@@ -623,13 +682,12 @@ extern "C" int conv3d_in_stats_launch(const void* x, const void* wpk, int B, int
     return static_cast<int>(cudaErrorInvalidValue);
   const int bn = 8192 / bm;
   int m_tiles = (M + bm - 1) / bm;
+  int need = im2col_smem(bm, bn);
   if (route == kBrick) {
-    const int nbuf = Ci / 32 > 1 ? 2 : 1;
-    const int need = nbuf * (td + 2) * (th + 2) * HALO_W * PITCH * 2 + 2 * BK * (bn + 8) * 2;
     if (Ci % 32 || W % BRICK_W || td < 1 || th < 1 || td * th * BRICK_W != bm || D % td ||
-        H % th || smem_bytes < need || smem_bytes < bm * (bn + 4) * 4 ||
-        smem_bytes > kMaxSmem - 2048)
+        H % th || !brick_pipeline_ok(taps, stages))
       return static_cast<int>(cudaErrorInvalidValue);
+    need = brick_smem(bm, bn, td, th, Ci / 32 > 1 ? 2 : 1, taps, stages);
     m_tiles = (D / td) * (H / th) * (W / BRICK_W);
   } else if (route == kSplitK) {
     if (Ci % 8 || splits < 1 || k_steps < 1 || (splits - 1) * k_steps >= n_k ||
@@ -638,6 +696,8 @@ extern "C" int conv3d_in_stats_launch(const void* x, const void* wpk, int B, int
   } else if (route != kIm2col) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (smem_bytes < need || smem_bytes > kMaxSmem - kStaticSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (m_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wpk),
                static_cast<__nv_bfloat16*>(y), static_cast<float*>(part_mean),
@@ -645,8 +705,10 @@ extern "C" int conv3d_in_stats_launch(const void* x, const void* wpk, int B, int
                K_pad, Co_pad};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = bm == 128
-      ? launch_tiles<128, 64>(a, route, m_tiles, td, th, splits, k_steps, smem_bytes, st)
-      : launch_tiles<256, 32>(a, route, m_tiles, td, th, splits, k_steps, smem_bytes, st);
+      ? launch_tiles<128, 64>(a, route, m_tiles, td, th, taps, stages, splits, k_steps,
+                              smem_bytes, st)
+      : launch_tiles<256, 32>(a, route, m_tiles, td, th, taps, stages, splits, k_steps,
+                              smem_bytes, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   conv3d_in_stats_combine_kernel<<<dim3(B, (Co + 31) / 32), kCombineThreads, 0, st>>>(
       a.pm, a.p2, static_cast<float*>(mean), static_cast<float*>(var), m_tiles, M, Co, bm);

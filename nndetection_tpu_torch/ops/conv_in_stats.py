@@ -48,11 +48,19 @@ _launch_fn = None
 _n_sms = {}
 
 # the kernel's tiling (csrc/conv3d_in_stats.cu): K step, Co padding of the
-# packed weights, a brick's run of w, the halo brick's bf16 voxel pitch
+# packed weights, the im2col A tile's bf16 row pitch and its buffers, a
+# brick's run of w, the halo brick's bf16 voxel pitch
 BK = 32
 CO_ALIGN = 64
+LDA = BK + 8
+IM2COL_STAGES = 2
 BRICK_W = 16
 PITCH = 48
+# the brick's pipelines, (taps per K step, weight buffers in the ring), and
+# the one each output-channel tile takes: few barriers per MMA within two
+# blocks per SM
+BRICK_PIPELINES = ((1, 4), (3, 2), (9, 2))
+BRICK_PIPELINE = {32: (9, 2), 64: (3, 2)}
 # shared memory one block may use on the H100, and what the kernel keeps
 # of it for its static arrays
 SMEM_MAX = 232_448
@@ -72,7 +80,8 @@ class ConvPlan:
     """How the kernel tiles one conv: ``route`` ("brick", "split_k" or
     "im2col"), ``bm`` voxels x ``bn`` output channels per block, the grid
     ``n_tiles x m_tiles x batch`` (times ``splits`` on the split-K route), the
-    brick ``td x th x 16`` (0 off the brick route), ``splits`` K ranges of
+    brick ``td x th x 16`` and its pipeline (``taps`` per K step, a ring of
+    ``stages`` weight buffers; 0 off the brick route), ``splits`` K ranges of
     ``k_steps`` steps of :data:`BK`, the dynamic shared memory and the
     split-K workspace in bytes."""
 
@@ -85,6 +94,8 @@ class ConvPlan:
     m_tiles: int
     td: int = 0
     th: int = 0
+    taps: int = 0
+    stages: int = 0
     splits: int = 1
     k_steps: int = 0
     smem_bytes: int = 0
@@ -119,17 +130,26 @@ def k_pad(ci: int) -> int:
     return -(-27 * ci // BK) * BK
 
 
-def brick_smem_bytes(ci: int, bm: int, bn: int, td: int, th: int) -> int:
+def brick_smem_bytes(ci: int, bm: int, bn: int, td: int, th: int, taps: int,
+                     stages: int) -> int:
     """The brick route's dynamic shared memory: one halo brick buffer for
-    Ci = 32, two (double-buffered over 32-channel chunks) above, the two
-    weight tiles; at least the f32 output tile that overlays them."""
+    Ci = 32, two (double-buffered over 32-channel chunks) above, the ring of
+    ``stages`` weight buffers of ``taps`` taps; at least the f32 output tile
+    that overlays them."""
     nbuf = 2 if ci > 32 else 1
-    pipe = nbuf * (td + 2) * (th + 2) * (BRICK_W + 2) * PITCH * 2 + 2 * BK * (bn + 8) * 2
+    pipe = (nbuf * (td + 2) * (th + 2) * (BRICK_W + 2) * PITCH * 2
+            + stages * taps * BK * (bn + 8) * 2)
     return max(pipe, bm * (bn + 4) * 4)
 
 
-def plan_conv(x_shape: Sequence[int], co: int, n_sms: int = 132,
-              route: Optional[str] = None) -> ConvPlan:
+def im2col_smem_bytes(bm: int, bn: int) -> int:
+    """The im2col and split-K routes' dynamic shared memory: the ring of A
+    and B tiles, at least the f32 output tile that overlays it."""
+    return max(IM2COL_STAGES * (bm * LDA + BK * (bn + 8)) * 2, bm * (bn + 4) * 4)
+
+
+def plan_conv(x_shape: Sequence[int], co: int, n_sms: int = 132, route: Optional[str] = None,
+              brick_pipeline: Optional[Tuple[int, int]] = None) -> ConvPlan:
     """The kernel's route for ``x [B, D, H, W, Ci] -> Co`` on a card with
     ``n_sms`` SMs:
 
@@ -141,7 +161,8 @@ def plan_conv(x_shape: Sequence[int], co: int, n_sms: int = 132,
     * "im2col", the gather of every K step from x, for the rest (the stem).
 
     ``route`` forces one (to compare the routes on the card), where the
-    shape allows it; a ValueError where it does not.
+    shape allows it; a ValueError where it does not. ``brick_pipeline``
+    forces one of :data:`BRICK_PIPELINES` on the brick route.
     """
     b, d, h, w, ci = (int(v) for v in x_shape)
     shape = (b, d, h, w, ci)
@@ -149,15 +170,18 @@ def plan_conv(x_shape: Sequence[int], co: int, n_sms: int = 132,
     bm = 8192 // bn
     n_tiles = -(-co // bn)
     n_k = k_pad(ci) // BK
+    taps, stages = brick_pipeline or BRICK_PIPELINE[bn]
+    if (taps, stages) not in BRICK_PIPELINES:
+        raise ValueError(f"no brick pipeline {(taps, stages)}: one of {BRICK_PIPELINES}")
     if route in (None, "brick") and ci % 32 == 0 and w % BRICK_W == 0:
         for td, th in BRICKS[bn]:
-            smem = brick_smem_bytes(ci, bm, bn, td, th)
+            smem = brick_smem_bytes(ci, bm, bn, td, th, taps, stages)
             if d % td or h % th or smem > SMEM_MAX - SMEM_STATIC:
                 continue
             m_tiles = (d // td) * (h // th) * (w // BRICK_W)
             if route or n_tiles * m_tiles * b >= n_sms:
-                return ConvPlan("brick", shape, co, bm, bn, n_tiles, m_tiles, td, th, 1, n_k,
-                                smem)
+                return ConvPlan("brick", shape, co, bm, bn, n_tiles, m_tiles, td, th, taps,
+                                stages, 1, n_k, smem)
             break
     m_tiles = -(-(d * h * w) // bm)
     grid = n_tiles * m_tiles * b
@@ -171,10 +195,11 @@ def plan_conv(x_shape: Sequence[int], co: int, n_sms: int = 132,
         if splits > 1:
             splits = -(-n_k // k_steps)  # no empty split
             ws = splits * b * m_tiles * bm * n_tiles * bn * 4
-            return ConvPlan("split_k", shape, co, bm, bn, n_tiles, m_tiles, 0, 0, splits,
-                            k_steps, 0, ws)
+            return ConvPlan("split_k", shape, co, bm, bn, n_tiles, m_tiles, 0, 0, 0, 0, splits,
+                            k_steps, im2col_smem_bytes(bm, bn), ws)
     if route in (None, "im2col"):
-        return ConvPlan("im2col", shape, co, bm, bn, n_tiles, m_tiles, 0, 0, 1, n_k)
+        return ConvPlan("im2col", shape, co, bm, bn, n_tiles, m_tiles, 0, 0, 0, 0, 1, n_k,
+                        im2col_smem_bytes(bm, bn))
     raise ValueError(f"no {route} plan for {shape} -> {co} at {n_sms} SMs")
 
 
@@ -233,6 +258,7 @@ def _kernel():
             ctypes.c_int, ctypes.c_int,                        # Ci, Co
             ctypes.c_int, ctypes.c_int,                        # K_pad, Co_pad
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # route, bm, td, th
+            ctypes.c_int, ctypes.c_int,                        # brick taps, stages
             ctypes.c_int, ctypes.c_int, ctypes.c_int,          # splits, k_steps, smem bytes
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # y, partials
             ctypes.c_void_p,                                   # split-K workspace
@@ -293,7 +319,8 @@ def _conv3d_in_stats_cuda(x, w, plan: Optional[ConvPlan] = None):
           if plan.ws_bytes else None)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), wpk.data_ptr(), b, d, h, wd, ci, co, wpk.shape[0], wpk.shape[1],
-                 ROUTES[plan.route], plan.bm, plan.td, plan.th, plan.splits, plan.k_steps,
+                 ROUTES[plan.route], plan.bm, plan.td, plan.th, plan.taps, plan.stages,
+                 plan.splits, plan.k_steps,
                  plan.smem_bytes, y.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
                  None if ws is None else ws.data_ptr(), mean.data_ptr(), var.data_ptr(),
                  torch.cuda.current_stream().cuda_stream)

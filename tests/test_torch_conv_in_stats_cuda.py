@@ -94,6 +94,19 @@ def test_forced_route_matches_plain(cuda_device, case, route):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", cis.BRICK_PIPELINES)
+@pytest.mark.parametrize("xs,co", [((2, 24, 32, 32, 128), 128), ((2, 16, 32, 64, 64), 16)])
+def test_brick_pipelines_match_plain(cuda_device, xs, co, pipeline):
+    """Each (taps per step, weight buffers) of the brick, with four and two
+    32-channel chunks of Ci: the next chunk's brick lands while this one
+    runs."""
+    plan = cis.plan_conv(xs, co, cis.sm_count(cuda_device), brick_pipeline=pipeline)
+    assert plan.route == "brick"
+    x, w = _inputs(cuda_device, xs, co, seed=2)
+    _check(x, w, plan)
+
+
+@pytest.mark.cuda
 def test_plan_for_another_shape_raises(cuda_device):
     x, w = _inputs(cuda_device, (1, 8, 16, 16, 8), 16)
     with pytest.raises(ValueError):

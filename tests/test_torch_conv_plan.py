@@ -96,11 +96,13 @@ def test_plan(xs, co):
     assert 0 <= p.smem_bytes <= 232_448
     if p.route == "brick":
         nbuf = 2 if ci > 32 else 1
+        assert (p.taps, p.stages) == cis.BRICK_PIPELINE[p.bn]
         assert p.smem_bytes >= (nbuf * (p.td + 2) * (p.th + 2) * 18 * cis.PITCH * 2
-                                + 2 * cis.BK * (p.bn + 8) * 2)
-        assert p.smem_bytes >= p.bm * (p.bn + 4) * 4  # the f32 tile overlays it
+                                + p.stages * p.taps * cis.BK * (p.bn + 8) * 2)
     else:
-        assert p.smem_bytes == 0
+        assert (p.taps, p.stages) == (0, 0)
+        assert p.smem_bytes >= cis.IM2COL_STAGES * (p.bm * cis.LDA + cis.BK * (p.bn + 8)) * 2
+    assert p.smem_bytes >= p.bm * (p.bn + 4) * 4  # the f32 tile overlays it
     # the split-K workspace: [splits, B, m_tiles * BM, n_tiles * BN] float32
     if p.route == "split_k":
         assert p.ws_bytes == p.splits * b * p.m_tiles * p.bm * p.n_tiles * p.bn * 4
@@ -114,6 +116,23 @@ def test_stage4_train_batch_workspace():
     steps, a 7.9 MB workspace."""
     p = cis.plan_conv((8, 6, 8, 8, 320), 320)
     assert (p.splits, p.k_steps, p.blocks, p.ws_bytes) == (2, 135, 240, 7_864_320)
+
+
+@pytest.mark.parametrize("pipeline", [(1, 4), (3, 2), (9, 2)])
+@pytest.mark.parametrize("xs,co", [((8, 96, 128, 128, 32), 32), ((2, 12, 16, 16, 256), 256)])
+def test_brick_pipelines_fit(xs, co, pipeline):
+    """Every brick pipeline fits one block's shared memory at stages 0b-3;
+    at stage 0b the default one leaves room for two blocks per SM."""
+    p = cis.plan_conv(xs, co, brick_pipeline=pipeline)
+    assert p.route == "brick" and (p.taps, p.stages) == pipeline
+    assert p.smem_bytes <= 232_448 - cis.SMEM_STATIC
+    if pipeline == cis.BRICK_PIPELINE[p.bn]:
+        assert 2 * (p.smem_bytes + cis.SMEM_STATIC) <= 228 * 1024
+
+
+def test_unknown_brick_pipeline_raises():
+    with pytest.raises(ValueError):
+        cis.plan_conv((8, 96, 128, 128, 32), 32, brick_pipeline=(2, 2))
 
 
 def test_more_sms_more_splits():
