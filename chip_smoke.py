@@ -65,8 +65,9 @@ keep-scan), max error, times and bound, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
 non-zero and no result line is printed.
 
-``--profile=DIR`` adds a ``torch.profiler`` trace of one train step (kernel
-time by name; the table into ``DIR/train_profile.txt``). ``--phases=a,b,...``
+``--profile=DIR`` adds a ``torch.profiler`` trace of one train step, default
+and fused (kernel time by name; the tables into ``DIR/train_profile.txt`` and
+``DIR/train_fused_profile.txt``). ``--phases=a,b,...``
 runs only the phases named (of ``build``, ``kernels``, ``conv`` (#5's checks
 alone), ``reference``, ``forward``, ``serve``, ``consolidate``, ``nms_mask``,
 ``sweep``, ``train``, ``serve_fused``, ``train_fused``); the device phase
@@ -497,11 +498,13 @@ def conv_kernel_checks(device, shapes=CONV_SHAPES, train=CONV_TRAIN, tiny=TINY_F
     shapes it also times the kernel, the plain version, the library
     composition it replaces (cuDNN ``F.conv3d`` in bf16 on channels_last_3d,
     then ``torch.var_mean``), states the bound, and times the other routes
-    the shape allows (im2col always; split-K with twice the block target);
+    the shape allows (im2col always; split-K aiming at one block per SM;
+    the brick's other pipeline);
     one JSON line holds every shape's route and times. The summary is the
     train batch's stage 0b."""
     from nndetection_tpu_torch.ops.conv_in_stats import (
-        BRICK_PIPELINES, conv3d_in_stats, conv3d_in_stats_plain, plan_conv, sm_count)
+        BRICK_PIPELINES, SPLIT_BLOCKS_PER_SM, conv3d_in_stats, conv3d_in_stats_plain, plan_conv,
+        sm_count)
 
     n_sms = sm_count(device)
     gd = torch.Generator(device=device).manual_seed(2)
@@ -532,8 +535,9 @@ def conv_kernel_checks(device, shapes=CONV_SHAPES, train=CONV_TRAIN, tiny=TINY_F
         alts = {}
         if plan.route != "im2col":
             alts["im2col"] = plan_conv(xs, co, n_sms, route="im2col")
-        if plan.route == "split_k":
-            alts["split_k x2"] = plan_conv(xs, co, 2 * n_sms, route="split_k")
+        if plan.route == "split_k":  # aiming at one block per SM
+            alts["split_k 1/SM"] = plan_conv(xs, co, n_sms // SPLIT_BLOCKS_PER_SM,
+                                             route="split_k")
         if plan.route == "brick":
             for taps, stages in BRICK_PIPELINES:
                 if (taps, stages) != (plan.taps, plan.stages):
@@ -1293,7 +1297,7 @@ def phase_train(device, patch=(96, 128, 128), batch=8, warmup=2, steps=5,
         f"{changed}/{len(before)} parameter tensors changed")
     log(f"[{label}] kernel launches during {label}: {launches}")
     if profile_dir is not None:
-        profile_train_step(trainer, state, targets, profile_dir)
+        profile_train_step(trainer, state, targets, profile_dir, label)
     return dict(launches=launches, steps=warmup + steps, remat=cfg.remat,
                 s_per_step=seconds / steps, patches_per_s=steps * batch / seconds, peak_gib=peak)
 
@@ -1316,9 +1320,9 @@ def phase_train_fused(device, unfused, **kwargs) -> dict:
     return r
 
 
-def profile_train_step(trainer, state, targets, out_dir) -> None:
+def profile_train_step(trainer, state, targets, out_dir, label="train") -> None:
     """Device time by kernel over one train step (``torch.profiler``), the
-    table into ``out_dir/train_profile.txt``."""
+    table into ``out_dir/<label>_profile.txt``."""
     from pathlib import Path
 
     from torch.profiler import ProfilerActivity, profile
@@ -1335,8 +1339,8 @@ def profile_train_step(trainer, state, targets, out_dir) -> None:
     table = events.table(sort_by="self_device_time_total", row_limit=40)
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "train_profile.txt").write_text(table)
-    log(f"[profile] one train step: wall {wall:.4f} s under the profiler, device time "
+    (out / f"{label.replace(' ', '_')}_profile.txt").write_text(table)
+    log(f"[profile] one {label} step: wall {wall:.4f} s under the profiler, device time "
         f"{device_us / 1e6:.4f} s ({100 * device_us / 1e6 / wall:.1f} % busy)")
     for line in table.splitlines()[:20]:
         log(f"[profile] {line}")
@@ -1395,7 +1399,8 @@ def main() -> None:
     if "serve_fused" in phases:
         launches["serve fused"] = phase_serve_fused(device)
     if "train_fused" in phases:
-        launches["train fused"] = phase_train_fused(device, train)["launches"]
+        launches["train fused"] = phase_train_fused(device, train,
+                                                    profile_dir=profile_dir)["launches"]
     # each kernel's launches in the phase that drives it: NMS in serving,
     # the instance norm in training, #5 in the fused training, #6 and the
     # cluster loop in the consolidation, #8 and the keep-scan in the NMS mask

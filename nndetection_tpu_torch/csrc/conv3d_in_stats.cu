@@ -26,40 +26,48 @@
 // output channels, 128 x 64 when Co is a multiple of 64 and 256 x 32
 // otherwise, so that each of the eight warps computes a 32 x 32 sub-tile with
 // bf16 wmma 16x16x16 and f32 accumulators, and walks K in steps of BK = 32
-// (k = tap * Ci + ci, zero-padded to a multiple of 32). The weights' B tile
-// (BK x BN) is streamed per step, double buffered with 16-byte cp.async.
-// The epilogue (tile_epilogue) stages the f32 tile in shared memory, rounds
-// it to bf16, stores y (NDHWC: the port's channels_last_3d memory) and
-// writes the tile's per-channel mean and M2 of the rounded values, two-pass.
-// The caller's plan (ops/conv_in_stats.py::plan_conv) picks one of three
-// routes; this file trusts it and checks it only for range.
+// (k = tap * Ci + ci, zero-padded to a multiple of 32). Fragments are loaded
+// with wmma.load.*.shared (load_frag_a/b), which compiles to ldmatrix; the
+// API's generic-pointer load_matrix_sync gave four generic 32-bit loads per
+// fragment. The weights' B tile (BK x BN) is streamed per step with 16-byte
+// cp.async. The epilogue (tile_epilogue) stages the f32 tile in shared
+// memory, rounds it to bf16, stores y (NDHWC: the port's channels_last_3d
+// memory) and writes the tile's per-channel mean and M2 of the rounded
+// values, two-pass. The caller's plan (ops/conv_in_stats.py::plan_conv)
+// picks one of three routes; this file trusts it and checks it for range.
 //
-// * brick (Ci % 32 == 0, W % 16 == 0, a full grid): the tile is a brick of
-//   Td x Th x 16 voxels whose rows are runs of 16 consecutive w, the brick
-//   dividing the volume. Per 32-channel chunk of Ci the block copies the
-//   halo brick (Td+2) x (Th+2) x 18 voxels into shared memory once and runs
-//   all 27 taps from it: the A fragment of a tap is the brick shifted by the
-//   tap, read by wmma::load_matrix_sync in place (no im2col). Every input
-//   byte crosses to the SM (Td+2)(Th+2)*18 / (Td*Th*16) times (2.5 for
-//   4 x 4 x 16) instead of 27. The voxel pitch is 48 bf16 (96 B): every
-//   shift keeps the fragment 32-byte aligned, at a 2-way bank conflict. The
-//   next chunk's brick arrives a 27th per tap, in the same cp.async group as
-//   the next tap's weights, so the waits stay in step; one brick buffer when
-//   Ci = 32 (two or three blocks then share an SM), two otherwise. Dynamic
-//   shared memory above 48 KB.
-// * split_k (a grid under one wave, Ci % 8 == 0: the deep stages): the
-//   im2col kernel below takes a range of K steps per split, one grid
+// * brick (Ci % 32 == 0, W % 16 == 0, a grid of at least one block per SM):
+//   the tile is a brick of Td x Th x 16 voxels whose rows are runs of 16
+//   consecutive w, the bricks dividing the volume (so each tile holds BM
+//   voxels, as the combine counts). Per 32-channel chunk of Ci the block
+//   copies the halo brick, (Td+2) x (Th+2) x 18 voxels, into shared memory
+//   once and runs all 27 taps from it: the A fragment of a tap is the brick
+//   shifted by the tap, read in place with a row pitch of one voxel (no
+//   im2col). Every input byte crosses to the SM (Td+2)(Th+2)*18 / (Td*Th*16)
+//   times (2.5 for 4 x 4 x 16) instead of 27. The voxel pitch is 40 bf16
+//   (80 B): the rows of an ldmatrix phase fall in distinct banks, and every
+//   shift keeps them 16-byte aligned. The weights stream through a ring:
+//   one tap per step four buffers deep for 32-channel tiles, three taps per
+//   step two deep for 64-channel ones (the faster of the two at each stage
+//   of the LUNA plan on the H100). The next chunk's brick arrives in pieces
+//   during this chunk's steps, in the same cp.async groups as the weights,
+//   so the waits stay in step; one brick buffer when Ci = 32 (three blocks
+//   then share an SM), two otherwise. Bounded by the MMA issue and the
+//   fragment loads of the 32 x 32 warp tiles, not by bytes.
+// * split_k (an im2col grid under one block per SM, Ci % 8 == 0: the deep
+//   stages): the im2col kernel takes a range of K steps per split, one grid
 //   dimension wider, and stores its f32 tile into a workspace
-//   [S, B, M_pad, N_pad]; a finish kernel sums the S partials in split order,
-//   then runs the shared epilogue. Bounded by the latency of the K loop,
-//   which split-K divides.
+//   [S, B, M_pad, N_pad]; a finish kernel sums the S partials in split
+//   order, then runs the shared epilogue. Bounded by the latency of the K
+//   loop, which split-K divides, and at these sizes by the launches.
 // * im2col (everything else: the stem, small Ci): the A tile is gathered
 //   from x per K step with the halo zero-filled, 16-byte cp.async when
 //   Ci % 8 == 0, scalar loads otherwise; the stem's K = 27 fills one step.
+//   A and B tiles are double buffered.
 //
-// wmma stays (no mma.sync/ldmatrix with a swizzle, no wgmma + TMA, no
-// persistent schedule): those are the next levers, each a rewrite of the
-// fragment path on its own.
+// wmma stays (no mma.sync with larger warp tiles and a swizzled layout, no
+// wgmma + TMA, no persistent schedule): those are the next levers, each a
+// rewrite of the fragment path on its own.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -76,7 +84,10 @@ constexpr int kThreads = 256;
 constexpr int LDA = BK + 8;   // bf16 row pitch of the im2col A tile (80 B)
 constexpr int BRICK_W = 16;   // a brick's run of consecutive w
 constexpr int HALO_W = BRICK_W + 2;
-constexpr int PITCH = 48;     // bf16 per voxel of the halo brick: 32 channels + 16
+// bf16 per voxel of the halo brick, 32 channels + 8: 80-byte rows put the
+// eight rows of an ldmatrix phase in distinct banks, and every tap shift
+// keeps the 16-byte row alignment ldmatrix needs
+constexpr int PITCH = 40;
 constexpr int kMaxSmem = 232448;  // dynamic + static shared memory of one block
 constexpr int kStaticSmem = 2048;  // kept for the epilogue's static arrays
 // im2col and split-K: A and B tiles double buffered, one K step loading
@@ -109,6 +120,31 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
                "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// wmma fragments, loaded from shared memory with the .shared state space
+// stated: the API's wmma::load_matrix_sync takes a generic pointer, and nvcc
+// then loads a bf16 fragment with four generic 32-bit loads (and transposes
+// B with four movmatrix); wmma.load.*.shared compiles to one ldmatrix. The
+// same instruction and fragment layout, so the same bits.
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
+using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
+
+__device__ __forceinline__ void load_frag_a(FragA& f, const __nv_bfloat16* smem, unsigned ldm) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  unsigned* r = reinterpret_cast<unsigned*>(&f.x[0]);
+  asm volatile("wmma.load.a.sync.aligned.row.m16n16k16.shared.bf16 {%0,%1,%2,%3}, [%4], %5;\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr), "r"(ldm)
+               : "memory");
+}
+__device__ __forceinline__ void load_frag_b(FragB& f, const __nv_bfloat16* smem, unsigned ldm) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  unsigned* r = reinterpret_cast<unsigned*>(&f.x[0]);
+  asm volatile("wmma.load.b.sync.aligned.row.m16n16k16.shared.bf16 {%0,%1,%2,%3}, [%4], %5;\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr), "r"(ldm)
+               : "memory");
+}
+
 template <int N>  // at most N of the latest groups still in flight
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
@@ -315,14 +351,14 @@ conv3d_in_stats_kernel(const __nv_bfloat16* __restrict__ x,   // [B, D, H, W, Ci
     const __nv_bfloat16* bs = Bs + (step % NST) * B_ELEMS;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[FN];
+      FragA fa[FM];
+      FragB fb[FN];
 #pragma unroll
       for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(fa[i], as + (wm * FM * 16 + i * 16) * LDA + kk, LDA);
+        load_frag_a(fa[i], as + (wm * FM * 16 + i * 16) * LDA + kk, LDA);
 #pragma unroll
       for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(fb[j], bs + kk * LDB + wn * FN * 16 + j * 16, LDB);
+        load_frag_b(fb[j], bs + kk * LDB + wn * FN * 16 + j * 16, LDB);
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -497,14 +533,13 @@ conv3d_brick_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
           bricks + (chunk & 1) * brick_elems +
           (((tap / 9) * halo_h + (tap / 3) % 3) * HALO_W + tap % 3) * PITCH;
       const __nv_bfloat16* bs = Bs + (s % NSTB) * B_STEP + (kt / 2) * B_ELEMS;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[FN];
+      FragA fa[FM];
+      FragB fb[FN];
 #pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(fa[i], br + run_voxel[i] * PITCH + kk, PITCH);
+      for (int i = 0; i < FM; ++i) load_frag_a(fa[i], br + run_voxel[i] * PITCH + kk, PITCH);
 #pragma unroll
       for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(fb[j], bs + kk * LDB + wn * FN * 16 + j * 16, LDB);
+        load_frag_b(fb[j], bs + kk * LDB + wn * FN * 16 + j * 16, LDB);
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -628,7 +663,7 @@ cudaError_t launch_brick(const Args& a, dim3 grid, int td, int th, int smem_byte
 
 // the brick's (taps per step, weight stages) instances
 inline bool brick_pipeline_ok(int taps, int stages) {
-  return (taps == 1 && stages == 4) || (taps == 3 && stages == 2) || (taps == 9 && stages == 2);
+  return (taps == 1 && stages == 4) || (taps == 3 && stages == 2);
 }
 
 template <int BM, int BN>
@@ -637,8 +672,7 @@ cudaError_t launch_tiles(const Args& a, int route, int m_tiles, int td, int th, 
   const dim3 grid((a.Co + BN - 1) / BN, m_tiles, a.B);
   if (route == kBrick) {
     if (taps == 1) return launch_brick<BM, BN, 1, 4>(a, grid, td, th, smem_bytes, st);
-    if (taps == 3) return launch_brick<BM, BN, 3, 2>(a, grid, td, th, smem_bytes, st);
-    return launch_brick<BM, BN, 9, 2>(a, grid, td, th, smem_bytes, st);
+    return launch_brick<BM, BN, 3, 2>(a, grid, td, th, smem_bytes, st);
   }
   if (route == kSplitK) {
     const cudaError_t e = launch_im2col<BM, BN, true, true>(

@@ -55,12 +55,12 @@ CO_ALIGN = 64
 LDA = BK + 8
 IM2COL_STAGES = 2
 BRICK_W = 16
-PITCH = 48
+PITCH = 40
 # the brick's pipelines, (taps per K step, weight buffers in the ring), and
-# the one each output-channel tile takes: few barriers per MMA within two
-# blocks per SM
-BRICK_PIPELINES = ((1, 4), (3, 2), (9, 2))
-BRICK_PIPELINE = {32: (9, 2), 64: (3, 2)}
+# the one each output-channel tile takes (the faster on the H100 at the LUNA
+# plan's stages: PERF.md)
+BRICK_PIPELINES = ((1, 4), (3, 2))
+BRICK_PIPELINE = {32: (1, 4), 64: (3, 2)}
 # shared memory one block may use on the H100, and what the kernel keeps
 # of it for its static arrays
 SMEM_MAX = 232_448
@@ -71,8 +71,10 @@ ROUTES = {"im2col": 0, "split_k": 1, "brick": 2}
 # voxels, 256 for 32-channel tiles and 128 for 64-channel ones
 BRICKS = {32: ((4, 4), (2, 8), (8, 2), (1, 16), (16, 1)),
           64: ((2, 4), (4, 2), (1, 8), (8, 1))}
-# split-K keeps at least this many K steps per split
+# split-K keeps at least this many K steps per split, and aims at this many
+# blocks per SM
 MIN_SPLIT_STEPS = 8
+SPLIT_BLOCKS_PER_SM = 2
 
 
 @dataclass(frozen=True)
@@ -156,8 +158,9 @@ def plan_conv(x_shape: Sequence[int], co: int, n_sms: int = 132, route: Optional
     * "brick" when ``Ci % 32 == 0``, ``W % 16 == 0``, a brick divides the
       volume and the bricks give at least ``n_sms`` blocks;
     * "split_k" otherwise when ``Ci % 8 == 0`` and the im2col grid is under
-      ``n_sms`` blocks: ``splits`` so that the grid reaches ``n_sms``, each
-      split at least :data:`MIN_SPLIT_STEPS` K steps;
+      ``n_sms`` blocks: ``splits`` so that the grid reaches
+      :data:`SPLIT_BLOCKS_PER_SM` blocks per SM, each split at least
+      :data:`MIN_SPLIT_STEPS` K steps;
     * "im2col", the gather of every K step from x, for the rest (the stem).
 
     ``route`` forces one (to compare the routes on the card), where the
@@ -186,7 +189,7 @@ def plan_conv(x_shape: Sequence[int], co: int, n_sms: int = 132, route: Optional
     m_tiles = -(-(d * h * w) // bm)
     grid = n_tiles * m_tiles * b
     if route in (None, "split_k") and ci % 8 == 0 and grid < n_sms:
-        splits = min(-(-n_sms // grid), n_k // MIN_SPLIT_STEPS)
+        splits = min(-(-SPLIT_BLOCKS_PER_SM * n_sms // grid), n_k // MIN_SPLIT_STEPS)
         while splits > 1:  # equal splits, the last one shorter but not too short
             k_steps = -(-n_k // splits)
             if n_k - (-(-n_k // k_steps) - 1) * k_steps >= MIN_SPLIT_STEPS:
@@ -287,7 +290,7 @@ def pack_weight(w: torch.Tensor, k_align: int, co_align: int) -> torch.Tensor:
     k_pad = -(-k // k_align) * k_align
     co_pad = -(-co // co_align) * co_align
     out = torch.zeros((k_pad, co_pad), dtype=torch.bfloat16, device=w.device)
-    out[:k, :co] = w.reshape(k, co)
+    out[:k, :co].view(3, 3, 3, ci, co).copy_(w)  # one copy from any strides of w
     return out
 
 
