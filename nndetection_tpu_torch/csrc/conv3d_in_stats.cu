@@ -430,10 +430,13 @@ conv3d_split_finish_kernel(const float* __restrict__ ws, __nv_bfloat16* __restri
 // ------------------------------------------------------------------- brick
 // Halo brick of Td x Th x 16 output voxels (blockIdx.y, bricks in w fastest,
 // then h, then d; they divide the volume). A step runs TPS taps of one
-// 32-channel chunk between two barriers. Dynamic shared memory:
-// [nbuf][(Td+2)(Th+2)18][PITCH] bf16 bricks, then a ring of NSTB weight
-// buffers [TPS][BK][BN + 8] bf16, NSTB - 1 steps loading ahead; the f32
-// output tile overlays them after the K loop.
+// 32-channel chunk. Dynamic shared memory: [nbuf][(Td+2)(Th+2)18][PITCH]
+// bf16 bricks, then a ring of NSTB weight buffers [TPS][BK][BN + 8] bf16;
+// the f32 output tile overlays them after the K loop. With NSTB > 2 the
+// ring loads NSTB - 2 steps ahead and a step has one barrier: a buffer is
+// refilled two steps after it was read, so the barrier of the step between
+// separates the two. With NSTB = 2 it loads one step ahead and a second
+// barrier ends each step.
 template <int BM, int BN, int TPS, int NSTB>
 __global__ void __launch_bounds__(kThreads)
 conv3d_brick_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wpk,
@@ -444,12 +447,15 @@ conv3d_brick_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
   static_assert(WARPS_M * WARPS_N * 32 == kThreads, "eight warps");
   constexpr int FM = 2, FN = 2;
   constexpr int LDB = BN + 8, B_ELEMS = BK * LDB, B_STEP = TPS * B_ELEMS;
-  constexpr int SPC = 27 / TPS;   // steps per chunk
-  constexpr int LA = NSTB - 1;    // steps loading ahead
-  // the next chunk's brick arrives over the first NEXT steps of this one,
-  // so that its last piece has landed when the next chunk starts
-  constexpr int NEXT = SPC + 1 - LA;
-  static_assert(SPC * TPS == 27 && NEXT >= 1 && LA >= 1 && LA < SPC, "taps per step, stages");
+  constexpr int SPC = 27 / TPS;  // steps per chunk
+  constexpr bool TAIL = NSTB == 2;  // a second barrier per step
+  constexpr int LA = TAIL ? 1 : NSTB - 2;  // steps loading ahead
+  // the next chunk's brick arrives over NEXT steps of this one from step
+  // FIRST (after the barrier that ends the last reads of its buffer), so
+  // that its last piece has landed when the next chunk starts
+  constexpr int FIRST = TAIL ? 0 : 1;
+  constexpr int NEXT = SPC + 1 - LA - FIRST;
+  static_assert(SPC * TPS == 27 && NEXT >= 1 && LA >= 1, "taps per step, stages");
   extern __shared__ __align__(128) unsigned char smem_dyn[];
   const int halo_h = Th + 2;
   const int nv = (Td + 2) * halo_h * HALO_W;  // voxels of one halo brick
@@ -521,8 +527,9 @@ conv3d_brick_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
   for (int s = 0; s < n_steps; ++s) {
     const int chunk = s / SPC, ls = s - chunk * SPC;
     if (s + LA < n_steps) load_b(s + LA, (s + LA) % NSTB);
-    if (chunk + 1 < n_chunks && ls < NEXT)
-      load_brick(chunk + 1, (chunk + 1) & 1, ls * per_step, min(pieces, (ls + 1) * per_step));
+    if (chunk + 1 < n_chunks && ls >= FIRST && ls < FIRST + NEXT)
+      load_brick(chunk + 1, (chunk + 1) & 1, (ls - FIRST) * per_step,
+                 min(pieces, (ls - FIRST + 1) * per_step));
     cp_async_commit();
     cp_async_wait<LA>();  // this step's weights, and at its first step the chunk's brick
     __syncthreads();
@@ -545,9 +552,10 @@ conv3d_brick_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
 #pragma unroll
         for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
     }
-    __syncthreads();  // the buffers are refilled in the next steps
+    if constexpr (TAIL) __syncthreads();  // the buffers are refilled in the next step
   }
   cp_async_wait_all();  // only empty groups remain; the tile overlays the bricks
+  if constexpr (!TAIL) __syncthreads();
 
   constexpr int LDC = BN + 4;
 #pragma unroll
