@@ -90,27 +90,32 @@ constexpr int HALO_W = BRICK_W + 2;
 constexpr int PITCH = 40;
 constexpr int kMaxSmem = 232448;  // dynamic + static shared memory of one block
 constexpr int kStaticSmem = 2048;  // kept for the epilogue's static arrays
-// im2col and split-K: A and B tiles double buffered, one K step loading
-// ahead (a deeper ring measured slower: it costs blocks per SM)
-constexpr int kIm2colStages = 2;
 
 enum Route { kIm2col = 0, kSplitK = 1, kBrick = 2 };
 
 // voxels per tile for Co: 128 with 64-channel tiles, 256 with 32-channel ones
 inline int tile_m(int co) { return co % 64 == 0 ? 128 : 256; }
 
-// dynamic shared memory of each route: the ring of stages, at least the
-// f32 output tile [BM][BN + 4] that overlays it after the K loop
-inline int c_tile_bytes(int bm, int bn) { return bm * (bn + 4) * 4; }
-inline int im2col_smem(int bm, int bn) {
-  const int pipe = kIm2colStages * (bm * LDA + BK * (bn + 8)) * 2;
-  return pipe > c_tile_bytes(bm, bn) ? pipe : c_tile_bytes(bm, bn);
-}
-// the brick route: nbuf halo bricks, a ring of `stages` weight buffers of
-// `taps` taps each
+// static shared memory of the im2col kernel: A and B tiles double buffered,
+// the f32 output tile [BM][BN + 4] overlaying them after the K loop
+template <int BM, int BN>
+struct Smem {
+  static constexpr int LDB = BN + 8;  // bf16 row pitch of the B tile
+  static constexpr int LDC = BN + 4;  // f32 row pitch of the staged output
+  static constexpr int A_ELEMS = BM * LDA;
+  static constexpr int B_ELEMS = BK * LDB;
+  static constexpr int PIPE_BYTES = 2 * (A_ELEMS + B_ELEMS) * 2;
+  static constexpr int C_BYTES = BM * LDC * 4;
+  static constexpr int BYTES = PIPE_BYTES > C_BYTES ? PIPE_BYTES : C_BYTES;
+};
+
+// dynamic shared memory of the brick route: nbuf halo bricks, a ring of
+// `stages` weight buffers of `taps` taps each; at least the f32 output tile
 inline int brick_smem(int bm, int bn, int td, int th, int nbuf, int taps, int stages) {
-  const int pipe = nbuf * (td + 2) * (th + 2) * HALO_W * PITCH * 2 + stages * taps * BK * (bn + 8) * 2;
-  return pipe > c_tile_bytes(bm, bn) ? pipe : c_tile_bytes(bm, bn);
+  const int pipe =
+      nbuf * (td + 2) * (th + 2) * HALO_W * PITCH * 2 + stages * taps * BK * (bn + 8) * 2;
+  const int c_tile = bm * (bn + 4) * 4;
+  return pipe > c_tile ? pipe : c_tile;
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
@@ -120,6 +125,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
                "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>  // at most N of the latest groups still in flight
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
+
 // wmma fragments, loaded from shared memory with the .shared state space
 // stated: the API's wmma::load_matrix_sync takes a generic pointer, and nvcc
 // then loads a bf16 fragment with four generic 32-bit loads (and transposes
@@ -144,10 +155,6 @@ __device__ __forceinline__ void load_frag_b(FragB& f, const __nv_bfloat16* smem,
                : "r"(addr), "r"(ldm)
                : "memory");
 }
-
-template <int N>  // at most N of the latest groups still in flight
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
 
 // B tile of K step kt: BK rows x BN channels of the packed weights from row
 // k0, always in bounds
@@ -238,8 +245,7 @@ __device__ __forceinline__ Voxel voxel_of(int m, int M, int H, int W) {
 
 // SPLIT: blockIdx.z = b * splits + split, K steps [split * k_steps, +k_steps)
 // of n_k, the f32 tile into ws [splits, B, m_tiles * BM, gridDim.x * BN];
-// otherwise all K steps and the epilogue. A and B tiles in a ring of
-// kIm2colStages buffers of dynamic shared memory.
+// otherwise all K steps and the epilogue.
 template <int BM, int BN, bool VEC, bool SPLIT>
 __global__ void __launch_bounds__(kThreads)
 conv3d_in_stats_kernel(const __nv_bfloat16* __restrict__ x,   // [B, D, H, W, Ci]
@@ -255,13 +261,12 @@ conv3d_in_stats_kernel(const __nv_bfloat16* __restrict__ x,   // [B, D, H, W, Ci
   static_assert(!SPLIT || VEC, "split-K takes the vector gather");
   constexpr int FM = 2, FN = 2;
   constexpr int A_PASSES = BM / 64;  // 16-byte A chunks per thread and step
-  constexpr int LDB = BN + 8, LDC = BN + 4;
-  constexpr int A_ELEMS = BM * LDA, B_ELEMS = BK * LDB;
-  constexpr int NST = kIm2colStages, LA = NST - 1;  // K steps loading ahead
-  extern __shared__ __align__(128) unsigned char smem_dyn[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_dyn);  // [NST][BM][LDA]
-  __nv_bfloat16* Bs = As + NST * A_ELEMS;                          // [NST][BK][LDB]
-  float* Cs = reinterpret_cast<float*>(smem_dyn);                  // [BM][LDC], after the K loop
+  using S = Smem<BM, BN>;
+  constexpr int LDB = S::LDB, LDC = S::LDC, A_ELEMS = S::A_ELEMS, B_ELEMS = S::B_ELEMS;
+  __shared__ __align__(128) unsigned char smem_raw[S::BYTES];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][BM][LDA]
+  __nv_bfloat16* Bs = As + 2 * A_ELEMS;                            // [2][BK][LDB]
+  float* Cs = reinterpret_cast<float*>(smem_raw);                  // [BM][LDC], after the K loop
 
   const int n0 = blockIdx.x * BN;
   const int mt = blockIdx.y;
@@ -335,20 +340,16 @@ conv3d_in_stats_kernel(const __nv_bfloat16* __restrict__ x,   // [B, D, H, W, Ci
   const int n_k = K_pad / BK;
   const int kt0 = split * k_steps;
   const int kt1 = SPLIT ? min(n_k, kt0 + k_steps) : n_k;
-  // one cp.async group per K step, possibly empty: the count stays regular
-#pragma unroll
-  for (int i = 0; i < LA; ++i) {
-    if (kt0 + i < kt1) load_tile(kt0 + i, i);
-    cp_async_commit();
-  }
+  load_tile(kt0, 0);
+  cp_async_commit();
   for (int kt = kt0; kt < kt1; ++kt) {
-    const int step = kt - kt0;
-    if (kt + LA < kt1) load_tile(kt + LA, (step + LA) % NST);
-    cp_async_commit();
-    cp_async_wait<LA>();  // this step's group has landed
+    const int buf = (kt - kt0) & 1;
+    if (kt + 1 < kt1) load_tile(kt + 1, buf ^ 1);
+    cp_async_commit();    // possibly empty: keeps the group count regular
+    cp_async_wait<1>();   // this step's group has landed
     __syncthreads();
-    const __nv_bfloat16* as = As + (step % NST) * A_ELEMS;
-    const __nv_bfloat16* bs = Bs + (step % NST) * B_ELEMS;
+    const __nv_bfloat16* as = As + buf * A_ELEMS;
+    const __nv_bfloat16* bs = Bs + buf * B_ELEMS;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       FragA fa[FM];
@@ -369,8 +370,8 @@ conv3d_in_stats_kernel(const __nv_bfloat16* __restrict__ x,   // [B, D, H, W, Ci
 
   if constexpr (SPLIT) {
     const int n_ws = gridDim.x * BN;
-    float* wt = ws + ((static_cast<int64_t>(split) * (gridDim.z / splits) + b) * m_tiles * BM + m0) *
-                         n_ws + n0;
+    const int64_t row0 = (static_cast<int64_t>(split) * (gridDim.z / splits) + b) * m_tiles * BM + m0;
+    float* wt = ws + row0 * n_ws + n0;
 #pragma unroll
     for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -634,36 +635,27 @@ struct Args {
   int B, D, H, W, Ci, Co, K, K_pad, Co_pad;
 };
 
-// raise the dynamic shared memory limit of one kernel instance, once per
-// larger size (`allowed` is the instance's own)
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, int& allowed) {
-  if (bytes <= allowed) return cudaSuccess;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e == cudaSuccess) allowed = bytes;
-  return e;
-}
-
 template <int BM, int BN, bool VEC, bool SPLIT>
-cudaError_t launch_im2col(const Args& a, dim3 grid, int splits, int k_steps, int smem_bytes,
-                          cudaStream_t st) {
-  static int allowed = 48 * 1024;
-  const auto kernel = conv3d_in_stats_kernel<BM, BN, VEC, SPLIT>;
-  const cudaError_t e = allow_smem(kernel, smem_bytes, allowed);
-  if (e != cudaSuccess) return e;
-  kernel<<<grid, kThreads, smem_bytes, st>>>(a.x, a.wpk, a.y, a.pm, a.p2, a.ws, a.D, a.H, a.W,
-                                             a.Ci, a.Co, a.K, a.K_pad, a.Co_pad, splits, k_steps);
+cudaError_t launch_im2col(const Args& a, dim3 grid, int splits, int k_steps, cudaStream_t st) {
+  conv3d_in_stats_kernel<BM, BN, VEC, SPLIT><<<grid, kThreads, 0, st>>>(
+      a.x, a.wpk, a.y, a.pm, a.p2, a.ws, a.D, a.H, a.W, a.Ci, a.Co, a.K, a.K_pad, a.Co_pad,
+      splits, k_steps);
   return cudaGetLastError();
 }
 
 template <int BM, int BN, int TPS, int NSTB>
 cudaError_t launch_brick(const Args& a, dim3 grid, int td, int th, int smem_bytes,
                          cudaStream_t st) {
-  static int allowed = 48 * 1024;
   const auto kernel = conv3d_brick_kernel<BM, BN, TPS, NSTB>;
-  const cudaError_t e = allow_smem(kernel, smem_bytes, allowed);
-  if (e != cudaSuccess) return e;
+  // dynamic shared memory above 48 KB: raise this instance's limit, once per
+  // larger size
+  static int allowed = 48 * 1024;
+  if (smem_bytes > allowed) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return e;
+    allowed = smem_bytes;
+  }
   kernel<<<grid, kThreads, smem_bytes, st>>>(a.x, a.wpk, a.y, a.pm, a.p2, a.D, a.H, a.W, a.Ci,
                                              a.Co, a.Co_pad, td, th, a.Ci / 32 > 1 ? 2 : 1);
   return cudaGetLastError();
@@ -683,16 +675,16 @@ cudaError_t launch_tiles(const Args& a, int route, int m_tiles, int td, int th, 
     return launch_brick<BM, BN, 3, 2>(a, grid, td, th, smem_bytes, st);
   }
   if (route == kSplitK) {
-    const cudaError_t e = launch_im2col<BM, BN, true, true>(
-        a, dim3(grid.x, grid.y, a.B * splits), splits, k_steps, smem_bytes, st);
+    const dim3 split_grid(grid.x, grid.y, a.B * splits);
+    const cudaError_t e = launch_im2col<BM, BN, true, true>(a, split_grid, splits, k_steps, st);
     if (e != cudaSuccess) return e;
     conv3d_split_finish_kernel<BM, BN><<<grid, kThreads, 0, st>>>(
         a.ws, a.y, a.pm, a.p2, a.B, a.D * a.H * a.W, a.Co, splits);
     return cudaGetLastError();
   }
   if (a.Ci % 8 == 0)
-    return launch_im2col<BM, BN, true, false>(a, grid, 1, 0, smem_bytes, st);
-  return launch_im2col<BM, BN, false, false>(a, grid, 1, 0, smem_bytes, st);
+    return launch_im2col<BM, BN, true, false>(a, grid, 1, 0, st);
+  return launch_im2col<BM, BN, false, false>(a, grid, 1, 0, st);
 }
 
 }  // namespace
@@ -724,7 +716,7 @@ extern "C" int conv3d_in_stats_launch(const void* x, const void* wpk, int B, int
     return static_cast<int>(cudaErrorInvalidValue);
   const int bn = 8192 / bm;
   int m_tiles = (M + bm - 1) / bm;
-  int need = im2col_smem(bm, bn);
+  int need = 0;  // the im2col kernel's shared memory is static
   if (route == kBrick) {
     if (Ci % 32 || W % BRICK_W || td < 1 || th < 1 || td * th * BRICK_W != bm || D % td ||
         H % th || !brick_pipeline_ok(taps, stages))
@@ -738,7 +730,7 @@ extern "C" int conv3d_in_stats_launch(const void* x, const void* wpk, int B, int
   } else if (route != kIm2col) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (smem_bytes < need || smem_bytes > kMaxSmem - kStaticSmem)
+  if (smem_bytes < need || smem_bytes > (route == kBrick ? kMaxSmem - kStaticSmem : 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (m_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wpk),

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,12 +48,9 @@ _launch_fn = None
 _n_sms = {}
 
 # the kernel's tiling (csrc/conv3d_in_stats.cu): K step, Co padding of the
-# packed weights, the im2col A tile's bf16 row pitch and its buffers, a
-# brick's run of w, the halo brick's bf16 voxel pitch
+# packed weights, a brick's run of w, the halo brick's bf16 voxel pitch
 BK = 32
 CO_ALIGN = 64
-LDA = BK + 8
-IM2COL_STAGES = 2
 BRICK_W = 16
 PITCH = 40
 # the brick's pipelines, (taps per K step, weight buffers in the ring), and
@@ -84,8 +81,9 @@ class ConvPlan:
     ``n_tiles x m_tiles x batch`` (times ``splits`` on the split-K route), the
     brick ``td x th x 16`` and its pipeline (``taps`` per K step, a ring of
     ``stages`` weight buffers; 0 off the brick route), ``splits`` K ranges of
-    ``k_steps`` steps of :data:`BK`, the dynamic shared memory and the
-    split-K workspace in bytes."""
+    ``k_steps`` steps of :data:`BK` (split ``s`` takes steps
+    ``[s * k_steps, min((s + 1) * k_steps, n_k))``), the brick's dynamic
+    shared memory and the split-K workspace in bytes."""
 
     route: str
     x_shape: Tuple[int, int, int, int, int]
@@ -107,26 +105,6 @@ class ConvPlan:
     def blocks(self) -> int:
         return self.n_tiles * self.m_tiles * self.x_shape[0] * self.splits
 
-    def k_ranges(self) -> List[Tuple[int, int]]:
-        """``[k_begin, k_end)`` of each split, in K elements."""
-        n_k = k_pad(self.x_shape[4]) // BK
-        return [(s * self.k_steps * BK, min(n_k, (s + 1) * self.k_steps) * BK)
-                for s in range(self.splits)]
-
-    def tile_voxels(self, mt: int) -> torch.Tensor:
-        """The flat voxel indices (within one batch item) of the rows of
-        m tile ``mt`` that exist, in row order, as the kernel decodes them."""
-        _, d, h, w, _ = self.x_shape
-        r = torch.arange(self.bm)
-        if self.route != "brick":
-            m = mt * self.bm + r
-            return m[m < d * h * w]
-        bw, bh = w // BRICK_W, h // self.th
-        w0, h0 = (mt % bw) * BRICK_W, (mt // bw) % bh * self.th
-        d0 = mt // (bw * bh) * self.td
-        run = r // BRICK_W
-        return ((d0 + run // self.th) * h + h0 + run % self.th) * w + w0 + r % BRICK_W
-
 
 def k_pad(ci: int) -> int:
     return -(-27 * ci // BK) * BK
@@ -142,12 +120,6 @@ def brick_smem_bytes(ci: int, bm: int, bn: int, td: int, th: int, taps: int,
     pipe = (nbuf * (td + 2) * (th + 2) * (BRICK_W + 2) * PITCH * 2
             + stages * taps * BK * (bn + 8) * 2)
     return max(pipe, bm * (bn + 4) * 4)
-
-
-def im2col_smem_bytes(bm: int, bn: int) -> int:
-    """The im2col and split-K routes' dynamic shared memory: the ring of A
-    and B tiles, at least the f32 output tile that overlays it."""
-    return max(IM2COL_STAGES * (bm * LDA + BK * (bn + 8)) * 2, bm * (bn + 4) * 4)
 
 
 def plan_conv(x_shape: Sequence[int], co: int, n_sms: int = 132, route: Optional[str] = None,
@@ -183,8 +155,8 @@ def plan_conv(x_shape: Sequence[int], co: int, n_sms: int = 132, route: Optional
                 continue
             m_tiles = (d // td) * (h // th) * (w // BRICK_W)
             if route or n_tiles * m_tiles * b >= n_sms:
-                return ConvPlan("brick", shape, co, bm, bn, n_tiles, m_tiles, td, th, taps,
-                                stages, 1, n_k, smem)
+                return ConvPlan("brick", shape, co, bm, bn, n_tiles, m_tiles, td=td, th=th,
+                                taps=taps, stages=stages, k_steps=n_k, smem_bytes=smem)
             break
     m_tiles = -(-(d * h * w) // bm)
     grid = n_tiles * m_tiles * b
@@ -198,11 +170,10 @@ def plan_conv(x_shape: Sequence[int], co: int, n_sms: int = 132, route: Optional
         if splits > 1:
             splits = -(-n_k // k_steps)  # no empty split
             ws = splits * b * m_tiles * bm * n_tiles * bn * 4
-            return ConvPlan("split_k", shape, co, bm, bn, n_tiles, m_tiles, 0, 0, 0, 0, splits,
-                            k_steps, im2col_smem_bytes(bm, bn), ws)
+            return ConvPlan("split_k", shape, co, bm, bn, n_tiles, m_tiles, splits=splits,
+                            k_steps=k_steps, ws_bytes=ws)
     if route in (None, "im2col"):
-        return ConvPlan("im2col", shape, co, bm, bn, n_tiles, m_tiles, 0, 0, 0, 0, 1, n_k,
-                        im2col_smem_bytes(bm, bn))
+        return ConvPlan("im2col", shape, co, bm, bn, n_tiles, m_tiles, k_steps=n_k)
     raise ValueError(f"no {route} plan for {shape} -> {co} at {n_sms} SMs")
 
 

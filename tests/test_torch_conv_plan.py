@@ -49,6 +49,30 @@ ROUTES = {
 }
 
 
+def tile_voxels(p, mt):
+    """The flat voxel indices (within one batch item) of the rows of m tile
+    ``mt`` that exist, in row order, as the kernel decodes them
+    (``conv3d_brick_kernel``'s brick origin and ``row_voxel``;
+    ``voxel_of`` on the other routes)."""
+    _, d, h, w, _ = p.x_shape
+    r = torch.arange(p.bm)
+    if p.route != "brick":
+        m = mt * p.bm + r
+        return m[m < d * h * w]
+    bw, bh = w // cis.BRICK_W, h // p.th
+    w0, h0, d0 = (mt % bw) * cis.BRICK_W, (mt // bw) % bh * p.th, mt // (bw * bh) * p.td
+    run = r // cis.BRICK_W
+    return ((d0 + run // p.th) * h + h0 + run % p.th) * w + w0 + r % cis.BRICK_W
+
+
+def k_ranges(p):
+    """``[k_begin, k_end)`` of each split in K elements, as the kernel takes
+    them: steps ``[s * k_steps, min((s + 1) * k_steps, n_k))``."""
+    n_k = cis.k_pad(p.x_shape[4]) // cis.BK
+    return [(s * p.k_steps * cis.BK, min(n_k, (s + 1) * p.k_steps) * cis.BK)
+            for s in range(p.splits)]
+
+
 def test_every_smoke_shape_is_pinned():
     shapes = (chip_smoke.CONV_SHAPES + [chip_smoke.CONV_TRAIN] + chip_smoke.TINY_FUSED_LAYERS
               + chip_smoke.CONV_EDGE_SHAPES)
@@ -76,14 +100,14 @@ def test_plan(xs, co):
     else:
         assert p.splits == 1
     # the tiles cover every output voxel exactly once
-    rows = torch.cat([p.tile_voxels(mt) for mt in range(p.m_tiles)])
+    rows = torch.cat([tile_voxels(p, mt) for mt in range(p.m_tiles)])
     assert rows.numel() == n_voxels
     assert torch.equal(rows.sort().values, torch.arange(n_voxels))
     if p.route == "brick":  # bricks hold BM voxels each: the combine's count
         assert p.m_tiles * p.bm == n_voxels
     # the K splits cover [0, K_pad) exactly once, in steps of BK
     k_pad = -(-27 * ci // cis.BK) * cis.BK
-    ranges = p.k_ranges()
+    ranges = k_ranges(p)
     assert len(ranges) == p.splits
     assert ranges[0][0] == 0 and ranges[-1][1] == k_pad
     for (b0, e0), (b1, _) in zip(ranges, ranges[1:]):
@@ -103,10 +127,9 @@ def test_plan(xs, co):
         assert (p.taps, p.stages) == cis.BRICK_PIPELINE[p.bn]
         assert p.smem_bytes >= (nbuf * (p.td + 2) * (p.th + 2) * 18 * cis.PITCH * 2
                                 + p.stages * p.taps * cis.BK * (p.bn + 8) * 2)
-    else:
-        assert (p.taps, p.stages) == (0, 0)
-        assert p.smem_bytes >= cis.IM2COL_STAGES * (p.bm * cis.LDA + cis.BK * (p.bn + 8)) * 2
-    assert p.smem_bytes >= p.bm * (p.bn + 4) * 4  # the f32 tile overlays it
+        assert p.smem_bytes >= p.bm * (p.bn + 4) * 4  # the f32 tile overlays it
+    else:  # the im2col kernel's shared memory is static
+        assert (p.taps, p.stages, p.smem_bytes) == (0, 0, 0)
     # the split-K workspace: [splits, B, m_tiles * BM, n_tiles * BN] float32
     if p.route == "split_k":
         assert p.ws_bytes == p.splits * b * p.m_tiles * p.bm * p.n_tiles * p.bn * 4
