@@ -10,10 +10,15 @@ Phases, each printing its findings:
    the git-ignored ``nndetection_tpu_torch/_build`` and loads them;
 3. kernels: every kernel of the serving, train and consolidation paths
    against its plain PyTorch version on the card, at the shapes of those
-   paths (instance-norm statistics, apply, gradient sums and input gradient
+   paths (instance-norm statistics (#1) at every LUNA stage shape at batch 2
+   and 8, f32, bf16 and f16, exact and plane-subsampled, one launch per call,
+   two calls bit for bit equal, timed as wall, device and host time, one
+   JSON line of every shape's times; apply, gradient sums and input gradient
    at the LUNA plan's stage shapes, bf16 and f32, exact and
-   plane-subsampled, and at the train batch's stage 0; NMS at 16 x 1000 and
-   2 x 10000 boxes; the fused conv + statistics (#5) at every fused LUNA
+   plane-subsampled, and at the train batch's stage 0; NMS (#7) at 16 x 1000
+   and 2 x 10000 boxes on every route its plan allows, also with 8-level
+   tied scores and an all -inf image, wall, device and host time; the fused
+   conv + statistics (#5) at every fused LUNA
    shape at batch 2 and stage 0b at the train batch, each on the route its
    plan picks and timed on the others it allows, then at the tiny model's
    fused layers and at edge shapes, every route at least once, two runs bit
@@ -68,11 +73,13 @@ non-zero and no result line is printed.
 ``--profile=DIR`` adds a ``torch.profiler`` trace of one train step, default
 and fused (kernel time by name; the tables into ``DIR/train_profile.txt`` and
 ``DIR/train_fused_profile.txt``). ``--phases=a,b,...``
-runs only the phases named (of ``build``, ``kernels``, ``conv`` (#5's checks
-alone), ``reference``, ``forward``, ``serve``, ``consolidate``, ``nms_mask``,
-``sweep``, ``train``, ``serve_fused``, ``train_fused``); the device phase
-always runs, the ``kernels`` JSON line only when every phase it reads ran.
-With no argument every phase but ``conv`` runs (``kernels`` holds it).
+runs only the phases named (of ``build``, ``kernels``, ``conv``, ``norm``
+and ``nms`` (#5's, #1's and #7's checks alone), ``reference``, ``forward``,
+``serve``, ``consolidate``, ``nms_mask``, ``sweep``, ``train``,
+``serve_fused``, ``train_fused``); the device phase always runs, the
+``kernels`` JSON line only when every phase it reads ran. With no argument
+every phase but ``conv``, ``norm`` and ``nms`` runs (``kernels`` holds
+them).
 """
 from __future__ import annotations
 
@@ -96,6 +103,8 @@ LUNA_STAGES = [
     (2, 3, 4, 4, 320),
 ]
 NMS_SHAPES = [(16, 1000, 100), (2, 10000, 100)]
+# batches at which #1 is checked and timed at every LUNA stage
+IN_BATCHES = (2, 8)
 # the train batch's stage 0: where the backward kernels' time is reported
 TRAIN_STAGE0 = (8, 96, 128, 128, 32)
 # the fused convolutions of the LUNA plan under NNDET_CONV_FUSED=1, as
@@ -159,7 +168,7 @@ TOL = {
     "wbc": dict(rtol=1e-5, atol=1e-6),
 }
 KERNELS = {
-    "in_stats": dict(route="triton", source="nndetection_tpu_torch/ops/instance_norm.py",
+    "in_stats": dict(route="cuda", source="nndetection_tpu_torch/csrc/instance_norm_stats.cu",
                      replaces="nndetection_tpu/ops/pallas_norm.py:72"),
     "in_apply": dict(route="triton", source="nndetection_tpu_torch/ops/instance_norm.py",
                      replaces="nndetection_tpu/ops/pallas_norm.py:105"),
@@ -267,6 +276,63 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 20, warmup: int = 3, hold_cycles: int = 1_000_000) -> float:
+    """Median device time of the work ``fn`` enqueues: CUDA events around
+    the call while a sleep kernel ahead of them holds the card, so that the
+    events time the launched work and not the host's enqueue."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(hold_cycles)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median host time of one warm call of ``fn`` (``perf_counter``, no
+    synchronisation inside; the card is idle when each call starts)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def three_times(fn, reps: int = 20) -> dict:
+    """Wall (events around the call), device and host times of ``fn``, ms."""
+    return {"ms": median_ms(fn, reps), "device_ms": device_ms(fn, reps),
+            "host_ms": host_ms(fn, reps)}
+
+
+def kernels_launched(fn, calls: int = 4, tries: int = 3) -> list:
+    """The names of the device kernels ``calls`` calls of ``fn`` launched
+    (``torch.profiler``; tried again when the trace came back empty)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    return names
+
+
 def bound(n_bytes: float, flops: float, peak_flops: float) -> dict:
     """The least time the card could take: the larger of the bytes over the
     HBM rate and the operations over their peak rate."""
@@ -350,14 +416,14 @@ def _grad_kernels(x4, dy4, gamma, start, step, reps):
 
 def phase_kernels(device, stages=LUNA_STAGES, nms_shapes=NMS_SHAPES, train_stage0=TRAIN_STAGE0,
                   conv_shapes=CONV_SHAPES, conv_train=CONV_TRAIN, iou_sizes=IOU_SIZES,
-                  suppression_sizes=SUPPRESSION_SIZES, wbc_shape=WBC_SHAPE, reps=20):
+                  suppression_sizes=SUPPRESSION_SIZES, wbc_shape=WBC_SHAPE, in_batches=IN_BATCHES,
+                  reps=20):
     """Each kernel against its plain version; returns per-kernel max error
     and the times at the main path's representative shape (stage 0, bf16,
     the default plane_sub:8 schedule for IN, at batch 2 for the forward and
     at the train batch for the backward; 16 x 1000 boxes for NMS)."""
     from nndetection_tpu_torch.ops.instance_norm import (
-        in_apply, in_apply_plain, in_stats, in_stats_plain, plane_schedule)
-    from nndetection_tpu_torch.ops.nms import nms_topk, nms_topk_plain
+        in_apply, in_apply_plain, in_stats_plain, plane_schedule)
 
     summary = {k: {"max_abs_err": 0.0} for k in KERNELS}
 
@@ -365,8 +431,9 @@ def phase_kernels(device, stages=LUNA_STAGES, nms_shapes=NMS_SHAPES, train_stage
         for k, e in errs.items():
             summary[k]["max_abs_err"] = max(summary[k]["max_abs_err"], e)
 
-    g = torch.Generator().manual_seed(0)
     t0 = time.perf_counter()
+    summary["in_stats"].update(norm_kernel_checks(device, stages, in_batches, reps))
+    g = torch.Generator().manual_seed(0)
     for si, shape in enumerate(stages):
         b, d, h, w, c = shape
         base = torch.randn(shape, generator=g) * 2 + 1
@@ -378,37 +445,24 @@ def phase_kernels(device, stages=LUNA_STAGES, nms_shapes=NMS_SHAPES, train_stage
             dy4 = base_dy.to(device, dtype).view(b, d, h * w, c)
             for stride in (None, 8):
                 start, step = plane_schedule(d, stride)
-                mean, var = in_stats(x4, start, step)
                 pmean, pvar = in_stats_plain(x4, start, step)
-                e_stats = max(check_close(f"in_stats {shape} {dtype} {stride}", mean, pmean, **TOL["in_stats"]),
-                              check_close(f"in_stats var {shape} {dtype} {stride}", var, pvar, **TOL["in_stats"]))
                 y = in_apply(x4, pmean, pvar, gamma, beta)
                 py = in_apply_plain(x4, pmean, pvar, gamma, beta)
                 tol = TOL["in_apply_f32" if dtype == torch.float32 else "in_apply_bf16"]
                 e_apply = check_close(f"in_apply {shape} {dtype}", y, py, **tol)
-                note_err({"in_stats": e_stats, "in_apply": e_apply})
+                note_err({"in_apply": e_apply})
                 times = {
-                    "in_stats": median_ms(lambda: in_stats(x4, start, step), reps),
-                    "in_stats_plain": median_ms(lambda: in_stats_plain(x4, start, step), reps),
                     "in_apply": median_ms(lambda: in_apply(x4, pmean, pvar, gamma, beta), reps),
                     "in_apply_plain": median_ms(lambda: in_apply_plain(x4, pmean, pvar, gamma, beta), reps),
                 }
-                log(f"[kernels] instance norm {shape} {str(dtype)[6:]} planes {start}::{step}: "
-                    f"stats err {e_stats:.2e} {times['in_stats']:.4f} ms (plain {times['in_stats_plain']:.4f}) | "
-                    f"apply err {e_apply:.2e} {times['in_apply']:.4f} ms (plain {times['in_apply_plain']:.4f})")
+                log(f"[kernels] instance norm apply {shape} {str(dtype)[6:]} planes {start}::{step}: "
+                    f"err {e_apply:.2e} {times['in_apply']:.4f} ms (plain {times['in_apply_plain']:.4f})")
                 if si == 0 and dtype == torch.bfloat16 and stride == 8:
-                    for k in ("in_stats", "in_apply"):
-                        summary[k].update(ms=times[k], plain_ms=times[k + "_plain"],
-                                          shape=f"{list(shape)} bf16 planes {start}::{step}")
-                    sel = x4[:, start::step]
-                    # stats: the selected planes read once, ~3 flops each;
-                    # apply: x read and y written once, ~3 flops each
-                    summary["in_stats"].update(
-                        library_ms=median_ms(lambda: torch.var_mean(sel, dim=(1, 2), correction=0),
-                                             reps),
-                        **bound(nbytes(sel, mean, var), 3 * sel.numel(), PEAK_F32))
-                    summary["in_apply"].update(library_ms=None, **bound(
-                        nbytes(x4, x4, mean, var, gamma, beta), 3 * x4.numel(), PEAK_F32))
+                    # x read and y written once, ~3 flops each
+                    summary["in_apply"].update(
+                        ms=times["in_apply"], plain_ms=times["in_apply_plain"], library_ms=None,
+                        shape=f"{list(shape)} bf16 planes {start}::{step}",
+                        **bound(nbytes(x4, x4, pmean, pvar, gamma, beta), 3 * x4.numel(), PEAK_F32))
                 errs, _ = _grad_kernels(x4, dy4, gamma, start, step, reps)
                 note_err(errs)
     # the backward's representative time: stage 0 of the train batch
@@ -429,41 +483,144 @@ def phase_kernels(device, stages=LUNA_STAGES, nms_shapes=NMS_SHAPES, train_stage
     summary["in_grad_input"].update(**bound(nbytes(x4, dy4, x4), 8 * x4.numel(), PEAK_F32))
     del x4, dy4
     log(f"[kernels] instance norm checks took {time.perf_counter() - t0:.1f} s (Triton compiles included)")
-
-    rng = np.random.RandomState(0)
-    for ni, (n_img, n, max_out) in enumerate(nms_shapes):
-        ctr = rng.uniform(10, 300, (n_img, n, 3))
-        sz = rng.uniform(2, 25, (n_img, n, 3))
-        boxes = torch.from_numpy(np.stack([
-            ctr[..., 0] - sz[..., 0], ctr[..., 1] - sz[..., 1], ctr[..., 0] + sz[..., 0],
-            ctr[..., 1] + sz[..., 1], ctr[..., 2] - sz[..., 2], ctr[..., 2] + sz[..., 2],
-        ], -1).astype(np.float32)).to(device)
-        scores = torch.from_numpy(rng.rand(n_img, n).astype(np.float32))
-        scores[torch.from_numpy(rng.rand(n_img, n) < 0.1)] = float("-inf")
-        scores = scores.to(device)
-        idx, valid = nms_topk(boxes, scores, 0.6, max_out)
-        pidx, pvalid = nms_topk_plain(boxes, scores, 0.6, max_out)
-        if not (torch.equal(idx, pidx.long()) and torch.equal(valid, pvalid)):
-            raise AssertionError(f"nms_topk {n_img}x{n}: indices or valid flags differ")
-        ms = median_ms(lambda: nms_topk(boxes, scores, 0.6, max_out), reps)
-        plain_ms = median_ms(lambda: nms_topk_plain(boxes, scores, 0.6, max_out), max(3, reps // 4), 1)
-        log(f"[kernels] nms_topk images {n_img} boxes {n} max_out {max_out}: indices identical, "
-            f"{int(valid.sum())} kept, {ms:.4f} ms (plain {plain_ms:.4f})")
-        if ni == 0:
-            # the work this run's data needs: one IoU (~25 flops) and one
-            # comparison of the arg-max per box for each step that found a
-            # box alive; boxes and scores read once, indices and flags
-            # written once. The steps form a chain of max_out dependent
-            # block-wide reductions, a latency this bound does not count.
-            steps = int(valid.sum())
-            summary["nms_topk"].update(
-                ms=ms, plain_ms=plain_ms, library_ms=None,
-                shape=f"{n_img} images x {n} boxes, max_out {max_out}",
-                **bound(nbytes(boxes, scores) + n_img * max_out * 5, steps * n * 26, PEAK_F32))
+    summary["nms_topk"].update(nms_kernel_checks(device, nms_shapes, reps))
     log(f"[kernels] took {time.perf_counter() - t0:.1f} s so far")
     summary["conv3d_in_stats"].update(conv_kernel_checks(device, conv_shapes, conv_train))
     summary.update(consolidation_kernel_checks(device, iou_sizes, suppression_sizes, wbc_shape, reps))
     return summary
+
+
+def norm_kernel_checks(device, stages=LUNA_STAGES, batches=IN_BATCHES, reps=20) -> dict:
+    """#1 (``in_stats``) against its plain version at every LUNA stage, at
+    each batch of ``batches``, under both schedules (exact, plane_sub:8), in
+    float32, bfloat16 and float16: mean and var within ``TOL["in_stats"]``,
+    one kernel launch per call (``torch.profiler``), two calls bit for bit
+    equal. In bfloat16 it times the call (wall, device, host), the plain
+    version and ``torch.var_mean`` and states the bound; one JSON line holds
+    every timed shape. The summary is stage 0, batch 2, bf16, planes 4::8."""
+    from nndetection_tpu_torch.ops.conv_in_stats import sm_count
+    from nndetection_tpu_torch.ops.instance_norm import (
+        in_stats, in_stats_plain, plan_in_stats, plane_schedule)
+
+    gd = torch.Generator(device=device).manual_seed(4)
+    n_sms = sm_count(device)
+    err, out, rows = 0.0, {}, []
+    for batch in batches:
+        for si, stage in enumerate(stages):
+            b, d, h, w, c = (batch,) + tuple(stage[1:])
+            base = torch.randn((b, d, h * w, c), generator=gd, device=device) * 2 + 1
+            for dtype in (torch.bfloat16, torch.float32, torch.float16):
+                x4 = base.to(dtype)
+                # exact and plane_sub:8 (the same planes below 16 of them)
+                for start, step in dict.fromkeys(plane_schedule(d, s) for s in (None, 8)):
+                    name = f"in_stats {[b, d, h, w, c]} {str(dtype)[6:]} planes {start}::{step}"
+                    mean, var = in_stats(x4, start, step)
+                    pmean, pvar = in_stats_plain(x4, start, step)
+                    err = max(err, check_close(f"{name} mean", mean, pmean, **TOL["in_stats"]),
+                              check_close(f"{name} var", var, pvar, **TOL["in_stats"]))
+                    mean2, var2 = in_stats(x4, start, step)
+                    if not (torch.equal(mean, mean2) and torch.equal(var, var2)):
+                        raise AssertionError(f"{name}: two calls differ")
+                    launched = kernels_launched(lambda: in_stats(x4, start, step))
+                    if len(launched) != 4 or not all("in_stats_kernel" in k for k in launched):
+                        raise AssertionError(f"{name}: four calls launched {launched}")
+                    if dtype != torch.bfloat16:
+                        continue
+                    plan = plan_in_stats(b, d, h * w, c, start, step, n_sms)
+                    t = three_times(lambda: in_stats(x4, start, step), reps)
+                    sel = x4[:, start::step]
+                    plain_ms = median_ms(lambda: in_stats_plain(x4, start, step), reps)
+                    library_ms = median_ms(
+                        lambda: torch.var_mean(sel, dim=(1, 2), correction=0), reps)
+                    # the selected planes read once, ~3 flops each
+                    bnd = bound(nbytes(sel, mean, var), 3 * sel.numel(), PEAK_F32)
+                    log(f"[kernels] {name}: {plan.splits} splits x {plan.n_cb} channel blocks, "
+                        f"one launch, bits equal; wall {t['ms']:.4f} ms, device "
+                        f"{t['device_ms']:.4f}, host {t['host_ms']:.4f}; plain {plain_ms:.4f}, "
+                        f"var_mean {library_ms:.4f}, bound {bnd['bound_ms']:.4f} ({bnd['bound_by']})")
+                    rows.append(dict(shape=[b, d, h, w, c], planes=f"{start}::{step}",
+                                     splits=plan.splits, blocks=plan.blocks, **t,
+                                     plain_ms=plain_ms, library_ms=library_ms,
+                                     bound_ms=bnd["bound_ms"]))
+                    if batch == batches[0] and si == 0 and step == 8:
+                        out = dict(t, plain_ms=plain_ms, library_ms=library_ms,
+                                   shape=f"{[b, d, h, w, c]} bf16 planes {start}::{step}", **bnd)
+            del base, x4
+    print(json.dumps({"in_stats_shapes": rows}), flush=True)
+    out["max_abs_err"] = err
+    return out
+
+
+def nms_boxes(rng, n_img, n):
+    """Seeded boxes ``[n_img, n, 6]`` and scores ``[n_img, n]`` (10 % -inf)."""
+    ctr = rng.uniform(10, 300, (n_img, n, 3))
+    sz = rng.uniform(2, 25, (n_img, n, 3))
+    boxes = torch.from_numpy(np.stack([
+        ctr[..., 0] - sz[..., 0], ctr[..., 1] - sz[..., 1], ctr[..., 0] + sz[..., 0],
+        ctr[..., 1] + sz[..., 1], ctr[..., 2] - sz[..., 2], ctr[..., 2] + sz[..., 2],
+    ], -1).astype(np.float32))
+    scores = torch.from_numpy(rng.rand(n_img, n).astype(np.float32))
+    scores[torch.from_numpy(rng.rand(n_img, n) < 0.1)] = float("-inf")
+    return boxes, scores
+
+
+def nms_kernel_checks(device, shapes=NMS_SHAPES, reps=20, thr=0.6) -> dict:
+    """#7 (``nms_topk``) against its plain version at each NMS shape, on
+    every route of ``plan_nms_topk`` the size allows: indices and valid flags
+    identical, also with scores quantised to 8 levels and one image all
+    -inf, two runs equal; wall, device and host times of each route and of
+    the plain version. The summary is the first shape on the plan's route."""
+    from nndetection_tpu_torch.ops.nms import (
+        ROUTES, _nms_topk_cuda, nms_topk, nms_topk_plain, plan_nms_topk)
+
+    rng = np.random.RandomState(0)
+    out = {}
+    for ni, (n_img, n, max_out) in enumerate(shapes):
+        boxes, scores = nms_boxes(rng, n_img, n)
+        boxes, scores = boxes.to(device), scores.to(device)
+        ties = (scores * 8).floor() / 8
+        ties[0] = float("-inf")
+        steps = min(max_out, n)
+        pidx, pvalid = nms_topk_plain(boxes, scores, thr, steps)
+        tidx, tvalid = nms_topk_plain(boxes, ties, thr, steps)
+        plain_ms = median_ms(lambda: nms_topk_plain(boxes, scores, thr, steps), max(3, reps // 4), 1)
+        idx, valid = nms_topk(boxes, scores, thr, max_out)
+        if not (torch.equal(idx[:, :steps], pidx.long()) and torch.equal(valid[:, :steps], pvalid)):
+            raise AssertionError(f"nms_topk {n_img}x{n}: indices or valid flags differ")
+        pick = plan_nms_topk(n, max_out).route
+        for route in ROUTES:
+            try:
+                plan = plan_nms_topk(n, max_out, route=route)
+            except ValueError:
+                log(f"[kernels] nms_topk images {n_img} boxes {n}: no {route} route "
+                    f"(the sort keys and the boxes do not fit in shared memory)")
+                continue
+            for sc, (wi, wv), what in ((scores, (pidx, pvalid), "scores"),
+                                       (ties, (tidx, tvalid), "8-level scores, one image -inf")):
+                ri, rv = _nms_topk_cuda(boxes, sc, thr, max_out, plan)
+                ri2, rv2 = _nms_topk_cuda(boxes, sc, thr, max_out, plan)
+                if not (torch.equal(ri[:, :steps], wi.long()) and torch.equal(rv[:, :steps], wv)
+                        and torch.equal(ri, ri2) and torch.equal(rv, rv2)):
+                    raise AssertionError(f"nms_topk {n_img}x{n} {route} route, {what}: indices "
+                                         "or valid flags differ from the plain version")
+            t = three_times(lambda: _nms_topk_cuda(boxes, scores, thr, max_out, plan), reps)
+            log(f"[kernels] nms_topk images {n_img} boxes {n} max_out {max_out} {route} route"
+                f"{' (plan)' if route == pick else ''}: indices identical (also 8-level ties, "
+                f"all -inf), {int(pvalid.sum())} kept; wall {t['ms']:.4f} ms, device "
+                f"{t['device_ms']:.4f}, host {t['host_ms']:.4f}; plain {plain_ms:.4f}, "
+                f"smem {plan.smem_bytes} B")
+            if ni == 0 and route == pick:
+                # the work this run's data needs: one IoU (~25 flops) and one
+                # comparison per box for each step that found a box alive;
+                # boxes and scores read once, int64 indices and bool flags
+                # written once. The steps form a chain of max_out dependent
+                # scans, a latency this bound does not count.
+                out = dict(t, plain_ms=plain_ms, library_ms=None, route=route,
+                           shape=f"{n_img} images x {n} boxes, max_out {max_out}",
+                           **bound(nbytes(boxes, scores) + n_img * max_out * 9,
+                                   int(pvalid.sum()) * n * 26, PEAK_F32))
+    out["max_abs_err"] = 0.0
+    return out
 
 
 def conv_check(x, w, plan=None) -> tuple:
@@ -1346,17 +1503,20 @@ def profile_train_step(trainer, state, targets, out_dir, label="train") -> None:
         log(f"[profile] {line}")
 
 
-PHASES = ("build", "kernels", "conv", "reference", "forward", "serve", "consolidate", "nms_mask",
-          "sweep", "train", "serve_fused", "train_fused")
+PHASES = ("build", "kernels", "conv", "norm", "nms", "reference", "forward", "serve",
+          "consolidate", "nms_mask", "sweep", "train", "serve_fused", "train_fused")
+# the checks of one kernel alone, which ``kernels`` includes
+KERNEL_PHASES = ("conv", "norm", "nms")
 
 
 def parse_phases(argv) -> tuple:
-    """``--phases=a,b,...`` (default: all but ``conv``, which ``kernels``
-    includes: #5's checks alone). ``nms_mask`` runs on ``consolidate``'s
-    ensemblers, so it brings that phase along."""
+    """``--phases=a,b,...`` (default: all but ``conv``, ``norm`` and ``nms``,
+    which ``kernels`` includes: #5's, #1's and #7's checks alone).
+    ``nms_mask`` runs on ``consolidate``'s ensemblers, so it brings that
+    phase along."""
     arg = next((a.split("=", 1)[1] for a in argv if a.startswith("--phases=")), None)
     if arg is None:
-        return tuple(p for p in PHASES if p != "conv")
+        return tuple(p for p in PHASES if p not in KERNEL_PHASES)
     chosen = set(arg.split(","))
     unknown = chosen - set(PHASES)
     if unknown:
@@ -1378,8 +1538,13 @@ def main() -> None:
         phase_build()
     if "kernels" in phases:
         summary = phase_kernels(device)
-    elif "conv" in phases:
-        conv_kernel_checks(device)
+    else:
+        if "conv" in phases:
+            conv_kernel_checks(device)
+        if "norm" in phases:
+            norm_kernel_checks(device)
+        if "nms" in phases:
+            nms_kernel_checks(device)
     if "reference" in phases:
         phase_reference(device)
         phase_reference_fused(device)
@@ -1416,7 +1581,8 @@ def main() -> None:
                             "phase": phase, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                            "shape": row["shape"]})
+                            "shape": row["shape"],
+                            **{k: row[k] for k in ("device_ms", "host_ms") if k in row}})
         print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,148 +2,96 @@
 ``nndetection_tpu/ops/pallas_norm.py::fused_instance_norm``, forward and
 backward.
 
-Four Triton kernels, each beside its plain PyTorch version:
+Four kernels, each beside its plain PyTorch version:
 
 * :func:`in_stats` replaces ``_stats_kernel`` (``pallas_norm.py:72``): the
   per-(b, c) mean and biased variance of ``x [B, D, Q, C]`` over the depth
   planes ``start, start + step, ...`` and all ``Q`` in-plane positions.
   ``step = 1`` gives the exact statistics of ``fused_instance_norm``; a
   stride gives the JAX package's ``plane_sub`` estimator
-  (``models/conv.py:199-240``).
+  (``models/conv.py:199-240``). CUDA C++ (``csrc/instance_norm_stats.cu``):
+  one launch, whose last block per (b, channel block) combines the
+  partials; :func:`plan_in_stats` sizes its grid.
 * :func:`in_apply` replaces ``_apply_kernel`` (``pallas_norm.py:105``):
   ``y = (x - mean) * scale + beta`` with ``scale = rsqrt(var + eps) * gamma``
-  folded in, computed in float32 and stored in x's type.
+  folded in, computed in float32 and stored in x's type. Triton.
 * :func:`in_grad_stats` replaces ``_grad_stats_kernel``
   (``pallas_norm.py:115``): ``s1 = sum(dy)`` and ``s2 = sum(dy * xhat)`` per
-  (b, c) over every voxel, ``xhat = (x - mean) * inv``.
+  (b, c) over every voxel, ``xhat = (x - mean) * inv``. Triton.
 * :func:`in_grad_input` replaces ``_dx_kernel`` (``pallas_norm.py:135``):
   ``dx = gamma * inv * (dy - [plane in P] * (s1 + xhat * s2) / |P|)``, where
   ``P`` are the planes the statistics read. With ``step = 1`` this is the
   Pallas kernel's formula; with a stride it is the gradient ``jax.grad``
   takes through the plane-subsampled statistics, whose mean and variance
-  depend on the sampled planes only.
+  depend on the sampled planes only. Triton.
 
 :class:`InstanceNormFunction` ties them into one ``torch.autograd.Function``
 (the counterpart of the Pallas ``custom_vjp``), on every device.
 
-What bounds all four on the H100: memory bandwidth. Each is one pass over the
-map (the stats read it, the apply reads and writes it, the gradient sums read
+What bounds all four on the H100: memory bandwidth at the large stages, the
+launch at the small ones. Each is one pass over the map (the stats read the
+selected planes, the apply reads and writes the map, the gradient sums read
 ``x`` and ``dy``, the input gradient reads both and writes ``dx``) with a few
 flops per element, far below the card's ~295 flops/byte balance point. The
 design is therefore coalescing and occupancy: C, the contiguous axis, is the
-inner block axis (a row of 32-64 channels is one 64-128 B segment), blocks of
-``[BLOCK_R, BLOCK_C]`` keep 8K elements in flight per program, and the two
-reductions split the spatial rows over enough programs to fill all SMs. The
+inner block axis (a row of 32-64 channels is one 64-128 B segment), and the
+reductions split the spatial rows over enough blocks to fill all SMs. The
 TPU kernels carry their running sums from one grid step to the next; blocks
-on the card run in parallel, so each program keeps its own partials over its
-rows and a second, tiny kernel combines the ``[B, splits, C]`` partials in
-one launch, in a fixed order: no float atomics, so two runs give the same
-bits.
+on the card run in parallel, so each keeps its own partials over its rows,
+and the partials are combined in a fixed order (the gradient sums in a
+second, tiny kernel; the statistics by the last block to arrive): no float
+atomics, so two runs give the same bits.
 
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor they
 launch the kernel or raise.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
-from nndetection_tpu_torch.ops import LAUNCHES
+from nndetection_tpu_torch.ops import LAUNCHES, _build
 
 # ``triton.language``, imported at the first launch: hosts without a card
 # have no triton, and importing this module must not need it
 tl = None
 _kernels = None
 
-# elements of one [BLOCK_R, BLOCK_C] block, programs per SM the stats pass
-# aims for, and partials the combine pass reads per step
+# elements of one [BLOCK_R, BLOCK_C] block, programs per SM the gradient-sum
+# pass aims for, and partials its combine pass reads per step
 _BLOCK_ELEMS = 8192
 _PROGRAMS_PER_SM = 8
 _COMBINE_SPLITS = 64
+
+# the statistics kernel (csrc/instance_norm_stats.cu): channels per block at
+# most, blocks per SM its grid aims at, fewest selected rows per split, and
+# its threads per block and partials per thread in the combine, which bound
+# the splits
+IN_STATS_CB = 64
+IN_STATS_BLOCKS_PER_SM = 2
+IN_STATS_MIN_ROWS = 128
+IN_STATS_THREADS = 256
+IN_STATS_HOLD = 24
+# dtype codes of its C entry point
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+_stats_fn = None
+# partials and arrival counters of the statistics kernel, one buffer per
+# (device, stream), grown on demand. The counters are zeroed once, when
+# allocated, and every launch leaves them at zero (the last block of each
+# (b, channel block) resets its own). Calls on one stream run in order, so
+# they share a buffer; calls on two streams must not, hence the key.
+_stats_ws: dict = {}
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _in_stats_kernel(
-    x_ptr, mean_ptr, m2_ptr, Q, C, start, step, n_rows, rows_per_split,
-    batch_stride, BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr,
-):
-    # partial (mean, M2) of one (split, b, channel block) over its rows of
-    # the selected planes, Chan-combined block by block
-    sp = tl.program_id(0)
-    b = tl.program_id(1)
-    cb = tl.program_id(2)
-    n_splits = tl.num_programs(0)
-    cols = cb * BLOCK_C + tl.arange(0, BLOCK_C)
-    cmask = cols < C
-    r_begin = sp * rows_per_split
-    r_end = tl.minimum(r_begin + rows_per_split, n_rows)
-    base = x_ptr + b.to(tl.int64) * batch_stride
-    count = tl.zeros([BLOCK_C], dtype=tl.float32)
-    mean = tl.zeros([BLOCK_C], dtype=tl.float32)
-    m2 = tl.zeros([BLOCK_C], dtype=tl.float32)
-    for r0 in range(r_begin, r_end, BLOCK_R):
-        rows = r0 + tl.arange(0, BLOCK_R)
-        rmask = rows < r_end
-        plane = rows // Q
-        q = rows - plane * Q
-        off = ((start + plane * step).to(tl.int64) * Q + q) * C
-        mask = rmask[:, None] & cmask[None, :]
-        x = tl.load(base + off[:, None] + cols[None, :], mask=mask, other=0.0)
-        x = x.to(tl.float32)
-        nb = tl.sum(rmask.to(tl.float32), axis=0)
-        mb = tl.sum(x, axis=0) / nb
-        d = tl.where(mask, x - mb[None, :], 0.0)
-        m2b = tl.sum(d * d, axis=0)
-        tot = count + nb
-        delta = mb - mean
-        mean = mean + delta * (nb / tot)
-        m2 = m2 + m2b + delta * delta * (count * nb / tot)
-        count = tot
-    out = (b * n_splits + sp) * C + cols
-    tl.store(mean_ptr + out, mean, mask=cmask)
-    tl.store(m2_ptr + out, m2, mask=cmask)
-
-
-def _in_combine_kernel(
-    part_mean_ptr, part_m2_ptr, mean_ptr, var_ptr, n_splits, C, rows_per_split,
-    n_rows, BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr,
-):
-    # combines the [n_splits] partials of one (b, channel block) with Chan's
-    # parallel formula, BLOCK_S splits at a time: mean = sum(n_s m_s) / N,
-    # M2 = sum(M2_s + n_s (m_s - mean)^2). Every split holds rows_per_split
-    # rows except the last. (A serial loop over the splits, one dependent
-    # load each, took as long as the stats pass itself.)
-    b = tl.program_id(0)
-    cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
-    cmask = cols < C
-    mean = tl.zeros([BLOCK_C], dtype=tl.float32)
-    for s0 in range(0, n_splits, BLOCK_S):
-        sp = s0 + tl.arange(0, BLOCK_S)
-        smask = sp < n_splits
-        nb = tl.where(smask, tl.minimum(rows_per_split, n_rows - sp * rows_per_split), 0)
-        off = (b * n_splits + sp[:, None]) * C + cols[None, :]
-        mb = tl.load(part_mean_ptr + off, mask=smask[:, None] & cmask[None, :], other=0.0)
-        mean += tl.sum(mb * (nb.to(tl.float32) / n_rows)[:, None], axis=0)
-    m2 = tl.zeros([BLOCK_C], dtype=tl.float32)
-    for s0 in range(0, n_splits, BLOCK_S):
-        sp = s0 + tl.arange(0, BLOCK_S)
-        smask = sp < n_splits
-        nb = tl.where(smask, tl.minimum(rows_per_split, n_rows - sp * rows_per_split), 0)
-        off = (b * n_splits + sp[:, None]) * C + cols[None, :]
-        mask = smask[:, None] & cmask[None, :]
-        mb = tl.load(part_mean_ptr + off, mask=mask, other=0.0)
-        m2b = tl.load(part_m2_ptr + off, mask=mask, other=0.0)
-        d = tl.where(mask, mb - mean[None, :], 0.0)
-        m2 += tl.sum(m2b + nb.to(tl.float32)[:, None] * d * d, axis=0)
-    tl.store(mean_ptr + b * C + cols, mean, mask=cmask)
-    tl.store(var_ptr + b * C + cols, m2 / n_rows, mask=cmask)
 
 
 def _in_apply_kernel(
@@ -262,8 +210,6 @@ def _triton():
         tl = triton.language
         _kernels = dict(
             triton=triton,
-            stats=triton.jit(_in_stats_kernel),
-            combine=triton.jit(_in_combine_kernel),
             apply=triton.jit(_in_apply_kernel),
             grad_stats=triton.jit(_in_grad_stats_kernel),
             grad_combine=triton.jit(_in_grad_combine_kernel),
@@ -321,38 +267,121 @@ def _splits(triton, device, b: int, n_cb: int, n_rows: int, block_r: int) -> Tup
     return triton.cdiv(n_rows, rows_per_split), rows_per_split
 
 
+@dataclass(frozen=True)
+class InStatsPlan:
+    """How the statistics kernel covers ``x [b, d, q, c]`` over planes
+    ``start::step``: ``n_rows`` selected rows (planes x ``q``) per batch
+    item, channel blocks of ``cb`` channels (``n_cb`` of them), and
+    ``splits`` ranges of ``rows_per_split`` rows (the last one shorter): one
+    block per (split, channel block, batch item)."""
+
+    b: int
+    d: int
+    q: int
+    c: int
+    start: int
+    step: int
+    n_rows: int
+    cb: int
+    n_cb: int
+    splits: int
+    rows_per_split: int
+
+    @property
+    def blocks(self) -> int:
+        return self.splits * self.n_cb * self.b
+
+    @property
+    def ws_floats(self) -> int:
+        """Floats of the partial means and M2s."""
+        return 2 * self.b * self.n_cb * self.splits * self.cb
+
+    def split_rows(self, split: int) -> Tuple[int, int]:
+        """The selected rows ``[lo, hi)`` of one split."""
+        lo = split * self.rows_per_split
+        return lo, min(lo + self.rows_per_split, self.n_rows)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_in_stats(b: int, d: int, q: int, c: int, start: int = 0, step: int = 1,
+                  n_sms: int = 132) -> InStatsPlan:
+    """The statistics kernel's grid for ``x [b, d, q, c]`` over planes
+    ``start::step`` on a card with ``n_sms`` SMs: channel blocks of at most
+    :data:`IN_STATS_CB` channels, and as many row splits as make one wave of
+    :data:`IN_STATS_BLOCKS_PER_SM` blocks per SM, each at least
+    :data:`IN_STATS_MIN_ROWS` rows (one split below that), at most as many
+    as the last block's combine holds (:data:`IN_STATS_HOLD` per thread)."""
+    n_planes = len(range(start, d, step))
+    if n_planes == 0 or min(b, q, c) < 1:
+        raise ValueError(f"in_stats: no row of [{b}, {d}, {q}, {c}] in planes {start}::{step}")
+    n_rows = n_planes * q
+    cb = min(c, IN_STATS_CB)
+    n_cb = -(-c // cb)
+    target = IN_STATS_BLOCKS_PER_SM * n_sms // (b * n_cb)
+    hold = IN_STATS_HOLD * (IN_STATS_THREADS // (1 << (cb - 1).bit_length()))
+    splits = max(1, min(target, n_rows // IN_STATS_MIN_ROWS, hold))
+    rows_per_split = -(-n_rows // splits)
+    return InStatsPlan(b, d, q, c, start, step, n_rows, cb, n_cb, -(-n_rows // rows_per_split),
+                       rows_per_split)
+
+
+def _stats_kernel():
+    global _stats_fn
+    if _stats_fn is None:
+        fn = _build.load().in_stats_launch
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_int,                     # x, dtype code
+            ctypes.POINTER(ctypes.c_int),                      # the plan's 11 integers
+            ctypes.c_void_p, ctypes.c_void_p,                  # partials, counters
+            ctypes.c_void_p,                                   # out [2, B, C]
+            ctypes.c_void_p, ctypes.c_int,                     # stream, device
+        ]
+        fn.restype = ctypes.c_int
+        _stats_fn = fn
+    return _stats_fn
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_ints(plan: InStatsPlan):
+    """The plan as the C entry point reads it, built once per plan."""
+    return (ctypes.c_int * 11)(plan.b, plan.d, plan.q, plan.c, plan.start, plan.step,
+                               plan.n_rows, plan.cb, plan.n_cb, plan.splits, plan.rows_per_split)
+
+
+def _stats_workspace(device: torch.device, stream: int, n_floats: int, n_counters: int):
+    """The (partials, counters) buffer of ``stream`` on ``device``, grown to
+    at least the sizes asked for (see ``_stats_ws``)."""
+    key = (device.index, stream)
+    ws = _stats_ws.get(key)
+    if ws is None or ws[0].numel() < n_floats or ws[1].numel() < n_counters:
+        n_floats = max(n_floats, ws[0].numel() if ws else 0)
+        n_counters = max(n_counters, ws[1].numel() if ws else 0)
+        ws = _stats_ws[key] = (torch.empty(n_floats, dtype=torch.float32, device=device),
+                               torch.zeros(n_counters, dtype=torch.int32, device=device))
+    return ws
+
+
 def _in_stats_cuda(x4, start, step):
     _check_map(x4, "in_stats")
-    k = _triton()
-    triton = k["triton"]
     b, d, q, c = x4.shape
-    n_rows = len(range(start, d, step)) * q
-    if n_rows == 0:
-        raise ValueError(f"in_stats: no plane selected by {start}::{step} of {d}")
-    block_r, block_c = _blocks(c)
-    n_cb = triton.cdiv(c, block_c)
-    n_splits, rows_per_split = _splits(triton, x4.device, b, n_cb, n_rows, block_r)
-    # one allocation for both partials and one for both results
-    part = torch.empty((2, b, n_splits, c), dtype=torch.float32, device=x4.device)
-    mean, var = torch.empty((2, b, c), dtype=torch.float32, device=x4.device)
-    with torch.cuda.device(x4.device):
-        k["stats"][(n_splits, b, n_cb)](
-            x4, part[0], part[1], q, c, start, step, n_rows, rows_per_split,
-            d * q * c, BLOCK_R=block_r, BLOCK_C=block_c, num_warps=8,
-        )
-        k["combine"][(b, n_cb)](
-            part[0], part[1], mean, var, n_splits, c, rows_per_split, n_rows,
-            BLOCK_S=_COMBINE_SPLITS, BLOCK_C=block_c, num_warps=4,
-        )
+    dev = x4.device
+    plan = plan_in_stats(b, d, q, c, start, step, _sm_count(dev))
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    part, counters = _stats_workspace(dev, stream, plan.ws_floats, b * plan.n_cb)
+    # the call's one allocation: both results
+    out = torch.empty((2, b, c), dtype=torch.float32, device=dev)
+    err = _stats_kernel()(x4.data_ptr(), _DTYPES[x4.dtype], _plan_ints(plan), part.data_ptr(),
+                          counters.data_ptr(), out.data_ptr(), stream, dev.index)
+    _build.check(err, "in_stats_launch")
     LAUNCHES["in_stats"] += 1
-    return mean, var
+    return out[0], out[1]
 
 
 def in_stats(
     x4: torch.Tensor, start: int = 0, step: int = 1
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dispatching wrapper of :func:`in_stats_plain` (CPU) and the Triton
-    stats kernel (CUDA)."""
+    """Dispatching wrapper of :func:`in_stats_plain` (CPU) and the CUDA
+    statistics kernel of ``csrc/instance_norm_stats.cu`` (CUDA)."""
     if x4.device.type == "cpu":
         return in_stats_plain(x4, start, step)
     if x4.device.type == "cuda":

@@ -6,20 +6,73 @@ block per image) for CUDA tensors and runs :func:`nms_topk_plain` for CPU
 tensors. Both compute, for each image, ``max_out`` steps of: select the
 highest remaining score (lowest index among ties), drop it and every box
 whose IoU with it is strictly greater than the threshold.
+
+The kernel sorts each image's candidates once and walks them in that order,
+32 at a time; :func:`plan_nms_topk` decides whether the sorted boxes sit in
+shared memory beside the sort keys (the on-chip route) or are read from the
+input by index (the global route, for large N).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
 from nndetection_tpu_torch.ops import LAUNCHES, _build
 
-# dynamic shared memory of one block holds the scores: 227 KB / 4 B
-MAX_BOXES_CUDA = 232448 // 4
+# shared memory one block may use on the H100, less the kernel's static
+# arrays
+SMEM_MAX = 232_448
+SMEM_STATIC = 256
+# the route numbers of the C entry point
+ROUTES = {"on_chip": 0, "global": 1}
+# floats kept per sorted box on chip: its six coordinates and its volume
+BOX_FIELDS = 7
+# the sort runs over at least this many keys (two per lane of a warp)
+MIN_PAD = 64
 
 _launch_fn = None
+
+
+@dataclass(frozen=True)
+class NmsPlan:
+    """How the kernel runs over ``n`` boxes per image for ``max_out`` steps:
+    ``route`` ("on_chip" or "global"), the ``n_pad`` keys (a power of two)
+    the sort runs over, and the dynamic shared memory in bytes: the keys,
+    the selected boxes' references and, on chip, the sorted boxes."""
+
+    route: str
+    n: int
+    max_out: int
+    n_pad: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan_nms_topk(n: int, max_out: int, smem_bytes: int = SMEM_MAX,
+                  route: Optional[str] = None) -> NmsPlan:
+    """The kernel's route for ``n`` boxes per image and ``max_out`` steps on
+    a card whose blocks have ``smem_bytes`` of shared memory: the on-chip
+    route when the sort keys (8 B per padded box), the references of the
+    ``min(max_out, n)`` selected boxes (4 B each) and the sorted boxes (28 B
+    per box, in 32-box words) fit, else the global route when the keys and
+    the references fit. ``route`` forces one where the size allows it; a
+    ValueError where no route does."""
+    if n < 1 or max_out < 1:
+        raise ValueError(f"nms_topk plan needs n >= 1 and max_out >= 1, got {n}, {max_out}")
+    n_pad = max(MIN_PAD, 1 << (n - 1).bit_length())
+    base = 8 * n_pad + 4 * min(max_out, n)
+    on_chip = base + 4 * BOX_FIELDS * 32 * -(-n // 32)
+    budget = smem_bytes - SMEM_STATIC
+    if route in (None, "on_chip") and on_chip <= budget:
+        return NmsPlan("on_chip", n, max_out, n_pad, on_chip)
+    if route in (None, "global") and base <= budget:
+        return NmsPlan("global", n, max_out, n_pad, base)
+    raise ValueError(f"nms_topk has no {route or ''} route for {n} boxes per image and "
+                     f"max_out {max_out} in {smem_bytes} bytes of shared memory")
 
 
 def _kernel():
@@ -27,11 +80,12 @@ def _kernel():
     if _launch_fn is None:
         fn = _build.load().nms_topk_launch
         fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p,              # boxes, scores
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,      # images, n, max_out
-            ctypes.c_float,                                # iou threshold
-            ctypes.c_void_p, ctypes.c_void_p,              # out idx, out valid
-            ctypes.c_void_p,                               # stream
+            ctypes.c_void_p, ctypes.c_void_p,                  # boxes, scores
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,          # images, n, n_pad
+            ctypes.c_int, ctypes.c_float,                      # max_out, iou threshold
+            ctypes.c_int, ctypes.c_int,                        # route, smem bytes
+            ctypes.c_void_p, ctypes.c_void_p,                  # out idx, out valid
+            ctypes.c_void_p, ctypes.c_int,                     # stream, device
         ]
         fn.restype = ctypes.c_int
         _launch_fn = fn
@@ -80,7 +134,10 @@ def nms_topk_plain(
     return idx, valid
 
 
-def _nms_topk_cuda(boxes, scores, iou_threshold, max_out):
+def _nms_topk_cuda(boxes, scores, iou_threshold, max_out, plan: Optional[NmsPlan] = None):
+    """The kernel over ``max_out`` steps (any number: steps with no box
+    alive give index 0, invalid) on ``plan`` (default: :func:`plan_nms_topk`'s
+    pick); returns ``(idx int64, valid bool)``."""
     n_img, n = scores.shape
     if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
         raise TypeError(f"nms_topk takes float32, got {boxes.dtype}, {scores.dtype}")
@@ -90,19 +147,22 @@ def _nms_topk_cuda(boxes, scores, iou_threshold, max_out):
         raise ValueError("nms_topk takes contiguous boxes and scores")
     if boxes.device != scores.device:
         raise ValueError("boxes and scores on different devices")
-    if n > MAX_BOXES_CUDA:
-        raise ValueError(f"nms_topk holds at most {MAX_BOXES_CUDA} boxes per image, got {n}")
-    idx = torch.empty((n_img, max_out), dtype=torch.int32, device=boxes.device)
-    valid = torch.empty((n_img, max_out), dtype=torch.uint8, device=boxes.device)
-    with torch.cuda.device(boxes.device):
-        err = _kernel()(
-            boxes.data_ptr(), scores.data_ptr(), n_img, n, max_out,
-            float(iou_threshold), idx.data_ptr(), valid.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
+    if plan is None:
+        plan = plan_nms_topk(n, max_out)
+    elif (plan.n, plan.max_out) != (n, max_out):
+        raise ValueError(f"a plan for {plan.n} boxes and max_out {plan.max_out}, called on "
+                         f"{n} and {max_out}")
+    dev = boxes.device
+    idx = torch.empty((n_img, max_out), dtype=torch.int64, device=dev)
+    valid = torch.empty((n_img, max_out), dtype=torch.bool, device=dev)
+    err = _kernel()(
+        boxes.data_ptr(), scores.data_ptr(), n_img, n, plan.n_pad, max_out,
+        float(iou_threshold), ROUTES[plan.route], plan.smem_bytes, idx.data_ptr(), valid.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev.index), dev.index,
+    )
     _build.check(err, "nms_topk_launch")
     LAUNCHES["nms_topk"] += 1
-    return idx, valid.bool()
+    return idx, valid
 
 
 def nms_topk(
@@ -122,14 +182,15 @@ def nms_topk(
     n_img, n = scores.shape
     steps = min(max_out, n)
     if steps == 0 or n_img == 0:
-        idx = torch.zeros((n_img, steps), dtype=torch.int32, device=scores.device)
-        valid = torch.zeros((n_img, steps), dtype=torch.bool, device=scores.device)
-    elif scores.device.type == "cpu":
-        idx, valid = nms_topk_plain(boxes, scores, iou_threshold, steps)
-    elif scores.device.type == "cuda":
-        idx, valid = _nms_topk_cuda(boxes, scores, iou_threshold, steps)
-    else:
+        idx = torch.zeros((n_img, max_out), dtype=torch.int64, device=scores.device)
+        valid = torch.zeros((n_img, max_out), dtype=torch.bool, device=scores.device)
+        return idx, valid
+    if scores.device.type == "cuda":
+        # the kernel writes int64 indices in [0, N-1] and pads past N itself
+        return _nms_topk_cuda(boxes, scores, iou_threshold, max_out)
+    if scores.device.type != "cpu":
         raise NotImplementedError(f"nms_topk has no kernel for {scores.device}")
+    idx, valid = nms_topk_plain(boxes, scores, iou_threshold, steps)
     idx = idx.long().clamp_(0, max(n - 1, 0))
     if max_out > steps:
         pad = max_out - steps

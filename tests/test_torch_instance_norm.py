@@ -3,8 +3,8 @@
 ``fused_instance_norm`` in interpret mode (exact statistics) and the JAX
 ``InstanceNorm`` module under its default ``plane_sub:8`` schedule and under
 ``NNDET_IN_STATS=two_pass``. On the CPU the port runs its plain versions; the
-Triton kernels are held to them on the card (``cuda`` marker and
-``chip_smoke.py``)."""
+kernels are held to them on the card (``cuda`` marker,
+``tests/test_torch_instance_norm_cuda.py`` and ``chip_smoke.py``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -176,8 +176,9 @@ def cuda_device():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("plane_stride", [None, 8])
 def test_triton_kernels_match_plain(cuda_device, dtype, plane_stride):
-    """The Triton kernels against the plain version on the card, at the
-    LUNA plan's stage-1 shape; float32 to 1e-5, bfloat16 to one ulp."""
+    """The statistics (CUDA C++) and apply (Triton) kernels against the
+    plain version on the card, at the LUNA plan's stage-1 shape; float32 to
+    1e-5, bfloat16 to one ulp."""
     g = torch.Generator().manual_seed(0)
     x = (torch.randn(2, 48, 64, 64, 64, generator=g) * 2 + 1).to(cuda_device, dtype)
     gamma = (torch.rand(64, generator=g) + 0.5).to(cuda_device)
