@@ -15,9 +15,10 @@ Phases, each printing its findings:
    two calls bit for bit equal, timed as wall, device and host time, one
    JSON line of every shape's times; apply, gradient sums and input gradient
    at the LUNA plan's stage shapes, bf16 and f32, exact and
-   plane-subsampled, and at the train batch's stage 0; NMS (#7) at 16 x 1000
-   and 2 x 10000 boxes on every route its plan allows, also with 8-level
-   tied scores and an all -inf image, wall, device and host time; the fused
+   plane-subsampled, and at the train batch's stage 0; NMS (#7) at 16 x 1000,
+   2 x 10000 and 2 x 20000 boxes (the last with its scratch in a global
+   workspace), also with 8-level tied scores and an all -inf image, wall,
+   device and host time; the fused
    conv + statistics (#5) at every fused LUNA
    shape at batch 2 and stage 0b at the train batch, each on the route its
    plan picks and timed on the others it allows, then at the tiny model's
@@ -102,7 +103,7 @@ LUNA_STAGES = [
     (2, 6, 8, 8, 320),
     (2, 3, 4, 4, 320),
 ]
-NMS_SHAPES = [(16, 1000, 100), (2, 10000, 100)]
+NMS_SHAPES = [(16, 1000, 100), (2, 10000, 100), (2, 20000, 100)]
 # batches at which #1 is checked and timed at every LUNA stage
 IN_BATCHES = (2, 8)
 # the train batch's stage 0: where the backward kernels' time is reported
@@ -565,13 +566,13 @@ def nms_boxes(rng, n_img, n):
 
 
 def nms_kernel_checks(device, shapes=NMS_SHAPES, reps=20, thr=0.6) -> dict:
-    """#7 (``nms_topk``) against its plain version at each NMS shape, on
-    every route of ``plan_nms_topk`` the size allows: indices and valid flags
-    identical, also with scores quantised to 8 levels and one image all
-    -inf, two runs equal; wall, device and host times of each route and of
-    the plain version. The summary is the first shape on the plan's route."""
-    from nndetection_tpu_torch.ops.nms import (
-        ROUTES, _nms_topk_cuda, nms_topk, nms_topk_plain, plan_nms_topk)
+    """#7 (``nms_topk``) against its plain version at each NMS shape (the
+    scratch in shared memory, or in a global workspace above 16384 boxes):
+    indices and valid flags identical, also with scores quantised to 8
+    levels and one image all -inf, two runs equal; wall, device and host
+    times of the kernel and of the plain version. The summary is the first
+    shape."""
+    from nndetection_tpu_torch.ops.nms import nms_topk, nms_topk_plain, plan_nms_topk
 
     rng = np.random.RandomState(0)
     out = {}
@@ -581,44 +582,33 @@ def nms_kernel_checks(device, shapes=NMS_SHAPES, reps=20, thr=0.6) -> dict:
         ties = (scores * 8).floor() / 8
         ties[0] = float("-inf")
         steps = min(max_out, n)
-        pidx, pvalid = nms_topk_plain(boxes, scores, thr, steps)
-        tidx, tvalid = nms_topk_plain(boxes, ties, thr, steps)
+        plan = plan_nms_topk(n, max_out)
+        for sc, what in ((scores, "scores"), (ties, "8-level scores, one image -inf")):
+            wi, wv = nms_topk_plain(boxes, sc, thr, steps)
+            ri, rv = nms_topk(boxes, sc, thr, max_out)
+            ri2, rv2 = nms_topk(boxes, sc, thr, max_out)
+            if not (torch.equal(ri[:, :steps], wi.long()) and torch.equal(rv[:, :steps], wv)
+                    and torch.equal(ri, ri2) and torch.equal(rv, rv2)):
+                raise AssertionError(f"nms_topk {n_img}x{n}, {what}: indices or valid flags "
+                                     "differ from the plain version")
+            if sc is scores:
+                kept = int(wv.sum())
         plain_ms = median_ms(lambda: nms_topk_plain(boxes, scores, thr, steps), max(3, reps // 4), 1)
-        idx, valid = nms_topk(boxes, scores, thr, max_out)
-        if not (torch.equal(idx[:, :steps], pidx.long()) and torch.equal(valid[:, :steps], pvalid)):
-            raise AssertionError(f"nms_topk {n_img}x{n}: indices or valid flags differ")
-        pick = plan_nms_topk(n, max_out).route
-        for route in ROUTES:
-            try:
-                plan = plan_nms_topk(n, max_out, route=route)
-            except ValueError:
-                log(f"[kernels] nms_topk images {n_img} boxes {n}: no {route} route "
-                    f"(the sort keys and the boxes do not fit in shared memory)")
-                continue
-            for sc, (wi, wv), what in ((scores, (pidx, pvalid), "scores"),
-                                       (ties, (tidx, tvalid), "8-level scores, one image -inf")):
-                ri, rv = _nms_topk_cuda(boxes, sc, thr, max_out, plan)
-                ri2, rv2 = _nms_topk_cuda(boxes, sc, thr, max_out, plan)
-                if not (torch.equal(ri[:, :steps], wi.long()) and torch.equal(rv[:, :steps], wv)
-                        and torch.equal(ri, ri2) and torch.equal(rv, rv2)):
-                    raise AssertionError(f"nms_topk {n_img}x{n} {route} route, {what}: indices "
-                                         "or valid flags differ from the plain version")
-            t = three_times(lambda: _nms_topk_cuda(boxes, scores, thr, max_out, plan), reps)
-            log(f"[kernels] nms_topk images {n_img} boxes {n} max_out {max_out} {route} route"
-                f"{' (plan)' if route == pick else ''}: indices identical (also 8-level ties, "
-                f"all -inf), {int(pvalid.sum())} kept; wall {t['ms']:.4f} ms, device "
-                f"{t['device_ms']:.4f}, host {t['host_ms']:.4f}; plain {plain_ms:.4f}, "
-                f"smem {plan.smem_bytes} B")
-            if ni == 0 and route == pick:
-                # the work this run's data needs: one IoU (~25 flops) and one
-                # comparison per box for each step that found a box alive;
-                # boxes and scores read once, int64 indices and bool flags
-                # written once. The steps form a chain of max_out dependent
-                # scans, a latency this bound does not count.
-                out = dict(t, plain_ms=plain_ms, library_ms=None, route=route,
-                           shape=f"{n_img} images x {n} boxes, max_out {max_out}",
-                           **bound(nbytes(boxes, scores) + n_img * max_out * 9,
-                                   int(pvalid.sum()) * n * 26, PEAK_F32))
+        t = three_times(lambda: nms_topk(boxes, scores, thr, max_out), reps)
+        log(f"[kernels] nms_topk images {n_img} boxes {n} max_out {max_out}: indices identical "
+            f"(also 8-level ties, all -inf), {kept} kept; wall {t['ms']:.4f} ms, device "
+            f"{t['device_ms']:.4f}, host {t['host_ms']:.4f}; plain {plain_ms:.4f}, "
+            f"smem {plan.smem_bytes} B, workspace {8 * plan.ws_words * n_img} B")
+        if ni == 0:
+            # the work this run's data needs: one IoU (~25 flops) and one
+            # comparison per box for each step that found a box alive;
+            # boxes and scores read once, int64 indices and bool flags
+            # written once. The steps form a chain of max_out dependent
+            # scans, a latency this bound does not count.
+            out = dict(t, plain_ms=plain_ms, library_ms=None,
+                       shape=f"{n_img} images x {n} boxes, max_out {max_out}",
+                       **bound(nbytes(boxes, scores) + n_img * max_out * 9, kept * n * 26,
+                               PEAK_F32))
     out["max_abs_err"] = 0.0
     return out
 

@@ -42,6 +42,7 @@ constexpr int kThreads = 256;
 constexpr int kUnroll = 4;    // rows per thread per tile, loads in flight
 constexpr int kMaxCB = 64;    // channels per block at most
 constexpr int kHold = 24;     // partials per thread the combine holds in registers
+constexpr int kBlocksPerSm = 2;  // resident blocks per SM: the plan's grid is one wave
 
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
@@ -92,9 +93,8 @@ __device__ __forceinline__ void chan_merge(float& n, float* mean, float* m2, flo
   }
 }
 
-// two blocks per SM: the plan's grid is one wave of them
 template <int kDT, int V>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 in_stats_kernel(const char* __restrict__ x, int D, int Q, int C, int start, int step,
                 int cb, int n_rows, int rows_per_split,
                 float* __restrict__ part_mean,   // [B * n_cb, splits, cb]
@@ -304,8 +304,8 @@ cudaError_t launch(const void* x, int B, int D, int Q, int C, int start, int ste
 // plan = {B, D, Q, C, start, step, n_rows, cb, n_cb, splits, rows_per_split}:
 // channel blocks of cb (<= 64) channels, n_cb = ceil(C / cb) of them,
 // `splits` row ranges of rows_per_split of the n_rows selected rows; part
-// holds 2 * B * n_cb * splits * cb floats (splits <= 24 * 256 / cb, cb
-// rounded up to a power of two), counters B * n_cb zeros (left at
+// holds 2 * B * n_cb * splits * cb floats (splits <= kHold * kThreads / cb,
+// cb rounded up to a power of two), counters B * n_cb zeros (left at
 // zero); out [2, B, C] float32 (mean, then var). All on device `device`.
 // Launches on `stream` and returns cudaGetLastError()
 // (cudaErrorInvalidValue for arguments out of range); the caller's current

@@ -12,8 +12,7 @@
 // N scores at every step and then an IoU pass over all N boxes. Here:
 // * sort once: the candidates' order never changes, so the block sorts the
 //   image's 64-bit keys (an order-preserving map of the score, inverted so
-//   that higher scores come first, above the index) in shared memory, a
-//   bitonic sort over N padded to a power of two (at least 64); the strides
+//   that higher scores come first, above the index), a bitonic sort over N padded to a power of two (at least 64); the strides
 //   below 64 run in registers with warp shuffles, without a block barrier.
 //   -inf sorts last, tied scores by index, -0 ties +0 as the comparison does;
 // * greedy NMS selects a candidate iff no box selected before it overlaps
@@ -26,12 +25,16 @@
 //   alive bitmask, took ~2,200 cycles per selection at N = 1000 on the
 //   H100, most of them 16 warps issuing IoUs; the walk does the IoUs of the
 //   chunks it reaches only, and stops once max_out boxes are selected;
-// * the boxes: copied once, in sorted order with their volumes, into shared
-//   memory on the on-chip route (28 B per box: 28 KB at N = 1000); read
-//   from the input by index on the global route, for N whose boxes do not
-//   fit beside the sort keys (2 x 10000: 280 KB), where the walk reads only
-//   the chunks it reaches. The caller's plan (ops/nms.py::plan_nms_topk)
-//   picks the route.
+// * the boxes: read from the input by index, only for the chunks the walk
+//   reaches. A copy of the sorted boxes into shared memory saved ~1 us of
+//   device time in 25 at 16 x 1000 on the H100, within the spread of runs;
+// * the scratch (the sort keys and the selected boxes' references: 8 B per
+//   padded box, 4 B per selection) sits in shared memory behind a fixed
+//   header where it fits (N up to 16384 at max_out 100), else in a global
+//   workspace the caller provides, one slice per image, where the same code
+//   runs through the same generic pointers (each barrier also orders the
+//   block's global writes). The caller's plan (ops/nms.py::plan_nms_topk)
+//   reads kSeg and kHeaderWords from this file and sizes both.
 //
 // Rounding: the IoU is computed exactly as the Pallas kernel writes it, the
 // selected box first: inter = max(dx,0)*max(dy,0)*max(dz,0), union =
@@ -49,9 +52,11 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 32;   // candidates per chunk: one per lane
-constexpr int kSeg = 64;     // keys a warp sorts in registers: two per lane
-constexpr int kFields = 7;   // x1, y1, x2, y2, z1, z2, volume
+constexpr int kChunk = 32;        // candidates per chunk: one per lane
+constexpr int kSeg = 64;          // keys a warp sorts in registers: two per lane
+constexpr int kFields = 7;        // a box in registers: x1, y1, x2, y2, z1, z2, volume
+constexpr int kHeaderWords = 64;  // shared memory ahead of the scratch: counts, masks
+static_assert(2 + kWarps + kChunk <= kHeaderWords, "the header holds the block's counts and masks");
 constexpr unsigned kAll = 0xffffffffu;
 
 // ascending order of the key: score descending, then index ascending
@@ -112,7 +117,7 @@ __device__ void sort_keys(unsigned long long* keys, int n_pad, int tid) {
   }
   __syncthreads();
   for (int k = 2 * kSeg; k <= n_pad; k <<= 1) {
-    // strides of 64 and more through shared memory, one barrier each
+    // strides of 64 and more through the scratch, one barrier each
     for (int j = k >> 1; j >= kSeg; j >>= 1) {
       for (int p = tid; p < (n_pad >> 1); p += kThreads) {
         const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
@@ -137,24 +142,24 @@ __device__ void sort_keys(unsigned long long* keys, int n_pad, int tid) {
   }
 }
 
-// kOnChip: the sorted boxes in shared memory, a box referred to by its
-// sorted position; else the input's boxes, referred to by their index
-template <bool kOnChip>
+// keys and selected references in shared memory behind the header, or in
+// ws + img * ws_words when ws is not null
 __global__ void __launch_bounds__(kThreads)
 nms_topk_kernel(const float* __restrict__ boxes,   // [I, N, 6]
                 const float* __restrict__ scores,  // [I, N], -inf = invalid
                 int n, int n_pad, int max_out, float thr,
+                unsigned long long* ws, long long ws_words,
                 int64_t* __restrict__ out_idx,     // [I, max_out]
                 bool* __restrict__ out_valid) {    // [I, max_out]
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_valid, s_count;
-  __shared__ uint32_t s_supp[kWarps], s_mat[kChunk];
-  const int n_al = 32 * ((n + 31) / 32);
-  const int s_cap = min(max_out, n);
-  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem);
-  int* s_ref = reinterpret_cast<int*>(keys + n_pad);    // the selected boxes
-  float* soa = reinterpret_cast<float*>(s_ref + s_cap);  // on chip: [7, n_al]
+  int& s_valid = reinterpret_cast<int*>(smem)[0];
+  int& s_count = reinterpret_cast<int*>(smem)[1];
+  uint32_t* s_supp = reinterpret_cast<uint32_t*>(smem) + 2;
+  uint32_t* s_mat = s_supp + kWarps;
   const int img = blockIdx.x;
+  unsigned long long* keys =
+      ws ? ws + img * ws_words : reinterpret_cast<unsigned long long*>(smem) + kHeaderWords / 2;
+  int* s_ref = reinterpret_cast<int*>(keys + n_pad);  // the selected boxes
   const float* bx = boxes + static_cast<size_t>(img) * n * 6;
   const float* sc = scores + static_cast<size_t>(img) * n;
   int64_t* oi = out_idx + static_cast<size_t>(img) * max_out;
@@ -163,16 +168,11 @@ nms_topk_kernel(const float* __restrict__ boxes,   // [I, N, 6]
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
-  auto load_box = [&](int ref, float* o) {
-    if constexpr (kOnChip) {
+  auto load_box = [&](int i, float* o) {
+    const float* b = bx + static_cast<size_t>(i) * 6;
 #pragma unroll
-      for (int f = 0; f < kFields; ++f) o[f] = soa[f * n_al + ref];
-    } else {
-      const float* b = bx + static_cast<size_t>(ref) * 6;
-#pragma unroll
-      for (int f = 0; f < 6; ++f) o[f] = b[f];
-      o[6] = volume(o);
-    }
+    for (int f = 0; f < 6; ++f) o[f] = b[f];
+    o[6] = volume(o);
   };
 
   // 1. keys, the count of valid scores, and whether any score is NaN
@@ -198,26 +198,12 @@ nms_topk_kernel(const float* __restrict__ boxes,   // [I, N, 6]
   sort_keys(keys, n_pad, tid);
   const int n_valid = has_nan ? 0 : s_valid;
 
-  // 3. on chip: the valid boxes in sorted order, with their volumes
-  if constexpr (kOnChip) {
-    for (int j = tid; j < n_valid; j += kThreads) {
-      const float* b = bx + static_cast<size_t>(static_cast<uint32_t>(keys[j])) * 6;
-      float o[kFields];
-#pragma unroll
-      for (int f = 0; f < 6; ++f) o[f] = b[f];
-      o[6] = volume(o);
-#pragma unroll
-      for (int f = 0; f < kFields; ++f) soa[f * n_al + j] = o[f];
-    }
-    __syncthreads();
-  }
-
-  // 4. the sorted candidates, a chunk of 32 at a time
+  // 3. the sorted candidates, a chunk of 32 at a time
   int s = 0;
   for (int cursor = 0; s < max_out && cursor < n_valid; cursor += kChunk) {
     const int c = cursor + lane;
     const bool vc = c < n_valid;
-    const int ref = kOnChip ? c : (vc ? static_cast<int>(static_cast<uint32_t>(keys[c])) : 0);
+    const int ref = vc ? static_cast<int>(static_cast<uint32_t>(keys[c])) : 0;
     float own[kFields];
     if (vc) {
       load_box(ref, own);
@@ -261,7 +247,7 @@ nms_topk_kernel(const float* __restrict__ boxes,   // [I, N, 6]
       }
       if ((sel >> lane) & 1u) {
         const int slot = s + __popc(sel & ((1u << lane) - 1u));
-        oi[slot] = static_cast<int64_t>(static_cast<uint32_t>(keys[c]));
+        oi[slot] = static_cast<int64_t>(ref);
         ov[slot] = true;
         s_ref[slot] = ref;
       }
@@ -276,56 +262,47 @@ nms_topk_kernel(const float* __restrict__ boxes,   // [I, N, 6]
   }
 }
 
-template <bool kOnChip>
-cudaError_t launch(const void* boxes, const void* scores, int num_images, int n, int n_pad,
-                   int max_out, float thr, int smem, void* out_idx, void* out_valid,
-                   cudaStream_t stream) {
-  // raise the dynamic shared memory limit of the current device once per
-  // size above the last one
-  static int set_bytes[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  if (smem > 48 * 1024 && smem > set_bytes[dev]) {
-    err = cudaFuncSetAttribute(nms_topk_kernel<kOnChip>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    set_bytes[dev] = smem;
-  }
-  nms_topk_kernel<kOnChip><<<num_images, kThreads, smem, stream>>>(
-      static_cast<const float*>(boxes), static_cast<const float*>(scores), n, n_pad, max_out,
-      thr, static_cast<int64_t*>(out_idx), static_cast<bool*>(out_valid));
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // boxes [I, N, 6] f32, scores [I, N] f32, out_idx [I, max_out] int64,
-// out_valid [I, max_out] bool; all contiguous on device `device`. route 0
-// (on chip) or 1 (global); n_pad the power of two >= max(N, 64) the sort runs
-// over; smem the dynamic shared memory the plan computed. Launches on
-// `stream` and returns cudaGetLastError() (cudaErrorInvalidValue for
-// arguments out of range); the caller's current device is restored.
+// out_valid [I, max_out] bool; all contiguous on device `device`. n_pad the
+// power of two >= max(N, kSeg) the sort runs over. The scratch of an image is
+// n_pad keys and min(max_out, N) int32 references: in shared memory when ws
+// is null (smem >= 4 * kHeaderWords + 8 * n_pad + 4 * min(max_out, N)), else
+// in ws, I slices of ws_words >= n_pad + ceil(min(max_out, N) / 2) 8-byte
+// words (smem >= 4 * kHeaderWords). Launches on `stream` and returns
+// cudaGetLastError() (cudaErrorInvalidValue for arguments out of range); the
+// caller's current device is restored.
 extern "C" int nms_topk_launch(const void* boxes, const void* scores, int num_images, int n,
-                               int n_pad, int max_out, float thr, int route, int smem,
-                               void* out_idx, void* out_valid, void* stream, int device) {
-  const long long n_al = 32LL * ((n + 31) / 32);
-  const long long need = 8LL * n_pad + 4LL * (max_out < n ? max_out : n) +
-                         (route == 0 ? 4LL * kFields * n_al : 0);
+                               int n_pad, int max_out, float thr, void* ws, long long ws_words,
+                               int smem, void* out_idx, void* out_valid, void* stream,
+                               int device) {
+  const long long s_cap = max_out < n ? max_out : n;
+  const long long need = 4LL * kHeaderWords + (ws ? 0 : 8LL * n_pad + 4 * s_cap);
   if (n < 1 || n_pad < n || n_pad < kSeg || (n_pad & (n_pad - 1)) || max_out < 1 ||
-      num_images < 1 || (route != 0 && route != 1) || smem < need) {
+      num_images < 1 || smem < need || (ws && ws_words < n_pad + (s_cap + 1) / 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int cur = 0;
   cudaError_t err = cudaGetDevice(&cur);
   if (err == cudaSuccess && cur != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto* s = static_cast<cudaStream_t>(stream);
-  err = route == 0 ? launch<true>(boxes, scores, num_images, n, n_pad, max_out, thr, smem,
-                                  out_idx, out_valid, s)
-                   : launch<false>(boxes, scores, num_images, n, n_pad, max_out, thr, smem,
-                                   out_idx, out_valid, s);
+  // raise the dynamic shared memory limit of this device once per size above
+  // the last one
+  static int set_bytes[64] = {};
+  if (device < 0 || device >= 64) err = cudaErrorInvalidDevice;
+  if (err == cudaSuccess && smem > 48 * 1024 && smem > set_bytes[device]) {
+    err = cudaFuncSetAttribute(nms_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err == cudaSuccess) set_bytes[device] = smem;
+  }
+  if (err == cudaSuccess) {
+    nms_topk_kernel<<<num_images, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(boxes), static_cast<const float*>(scores), n, n_pad, max_out,
+        thr, static_cast<unsigned long long*>(ws), ws_words, static_cast<int64_t*>(out_idx),
+        static_cast<bool*>(out_valid));
+    err = cudaGetLastError();
+  }
   if (cur != device) cudaSetDevice(cur);
   return static_cast<int>(err);
 }

@@ -11,13 +11,15 @@ bind each entry point with explicit ``argtypes``; every entry point returns
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -103,6 +105,16 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         _lib = ctypes.CDLL(str(build()))
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def constants(source: str) -> Dict[str, int]:
+    """The integer literals a kernel source declares as ``constexpr int kName
+    = value;``: the geometry that the Python launch plans read, so that it is
+    stated once, in the kernel's source. Reads the file; needs no ``nvcc``."""
+    text = (CSRC / source).read_text()
+    return {m.group(1): int(m.group(2))
+            for m in re.finditer(r"constexpr\s+int\s+(k\w+)\s*=\s*(\d+)\s*;", text)}
 
 
 def check(err: int, what: str) -> None:

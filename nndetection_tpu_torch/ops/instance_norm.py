@@ -68,15 +68,17 @@ _BLOCK_ELEMS = 8192
 _PROGRAMS_PER_SM = 8
 _COMBINE_SPLITS = 64
 
-# the statistics kernel (csrc/instance_norm_stats.cu): channels per block at
-# most, blocks per SM its grid aims at, fewest selected rows per split, and
-# its threads per block and partials per thread in the combine, which bound
-# the splits
-IN_STATS_CB = 64
-IN_STATS_BLOCKS_PER_SM = 2
+# the statistics kernel's geometry, read from its source
+# (csrc/instance_norm_stats.cu): channels per block at most, resident blocks
+# per SM (its grid is one wave of them), and its threads per block and
+# partials per thread in the combine, which bound the splits
+_IN_STATS_GEO = _build.constants("instance_norm_stats.cu")
+IN_STATS_CB = _IN_STATS_GEO["kMaxCB"]
+IN_STATS_BLOCKS_PER_SM = _IN_STATS_GEO["kBlocksPerSm"]
+IN_STATS_THREADS = _IN_STATS_GEO["kThreads"]
+IN_STATS_HOLD = _IN_STATS_GEO["kHold"]
+# the plan's own choice: fewest selected rows per split
 IN_STATS_MIN_ROWS = 128
-IN_STATS_THREADS = 256
-IN_STATS_HOLD = 24
 # dtype codes of its C entry point
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 

@@ -8,31 +8,23 @@ highest remaining score (lowest index among ties), drop it and every box
 whose IoU with it is strictly greater than the threshold.
 
 The kernel sorts each image's candidates once and walks them in that order,
-32 at a time; :func:`plan_nms_topk` decides whether the sorted boxes sit in
-shared memory beside the sort keys (the on-chip route) or are read from the
-input by index (the global route, for large N).
+32 at a time; :func:`plan_nms_topk` sizes its sort and decides whether its
+scratch (the sort keys and the selected boxes' references) sits in shared
+memory or, for large N, in a global workspace.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
 from nndetection_tpu_torch.ops import LAUNCHES, _build
 
-# shared memory one block may use on the H100, less the kernel's static
-# arrays
+# dynamic shared memory one block may opt into on the H100 (227 KB)
 SMEM_MAX = 232_448
-SMEM_STATIC = 256
-# the route numbers of the C entry point
-ROUTES = {"on_chip": 0, "global": 1}
-# floats kept per sorted box on chip: its six coordinates and its volume
-BOX_FIELDS = 7
-# the sort runs over at least this many keys (two per lane of a warp)
-MIN_PAD = 64
 
 _launch_fn = None
 
@@ -40,39 +32,37 @@ _launch_fn = None
 @dataclass(frozen=True)
 class NmsPlan:
     """How the kernel runs over ``n`` boxes per image for ``max_out`` steps:
-    ``route`` ("on_chip" or "global"), the ``n_pad`` keys (a power of two)
-    the sort runs over, and the dynamic shared memory in bytes: the keys,
-    the selected boxes' references and, on chip, the sorted boxes."""
+    the ``n_pad`` keys (a power of two) the sort runs over, the dynamic
+    shared memory in bytes, and ``ws_words``, the 8-byte words of global
+    workspace per image that hold the scratch (0: it sits in shared
+    memory)."""
 
-    route: str
     n: int
     max_out: int
     n_pad: int
     smem_bytes: int
+    ws_words: int
 
 
 @functools.lru_cache(maxsize=None)
-def plan_nms_topk(n: int, max_out: int, smem_bytes: int = SMEM_MAX,
-                  route: Optional[str] = None) -> NmsPlan:
-    """The kernel's route for ``n`` boxes per image and ``max_out`` steps on
-    a card whose blocks have ``smem_bytes`` of shared memory: the on-chip
-    route when the sort keys (8 B per padded box), the references of the
-    ``min(max_out, n)`` selected boxes (4 B each) and the sorted boxes (28 B
-    per box, in 32-box words) fit, else the global route when the keys and
-    the references fit. ``route`` forces one where the size allows it; a
-    ValueError where no route does."""
-    if n < 1 or max_out < 1:
-        raise ValueError(f"nms_topk plan needs n >= 1 and max_out >= 1, got {n}, {max_out}")
-    n_pad = max(MIN_PAD, 1 << (n - 1).bit_length())
-    base = 8 * n_pad + 4 * min(max_out, n)
-    on_chip = base + 4 * BOX_FIELDS * 32 * -(-n // 32)
-    budget = smem_bytes - SMEM_STATIC
-    if route in (None, "on_chip") and on_chip <= budget:
-        return NmsPlan("on_chip", n, max_out, n_pad, on_chip)
-    if route in (None, "global") and base <= budget:
-        return NmsPlan("global", n, max_out, n_pad, base)
-    raise ValueError(f"nms_topk has no {route or ''} route for {n} boxes per image and "
-                     f"max_out {max_out} in {smem_bytes} bytes of shared memory")
+def plan_nms_topk(n: int, max_out: int, smem_bytes: int = SMEM_MAX) -> NmsPlan:
+    """The kernel's launch for ``n`` boxes per image and ``max_out`` steps on
+    a card whose blocks may take ``smem_bytes`` of shared memory. The sort
+    runs over ``n`` padded to a power of two, at least the 64 keys a warp
+    sorts in registers (``kSeg`` of ``csrc/nms_topk.cu``). The scratch, 8 B
+    per padded key and 4 B per selection (``min(max_out, n)`` of them), sits
+    in shared memory behind the kernel's header (``kHeaderWords``) where it
+    fits, else in a global workspace of ``ws_words`` per image."""
+    if n < 1 or max_out < 1 or n > 1 << 30:
+        raise ValueError(f"nms_topk plan needs 1 <= n <= 2**30 and max_out >= 1, got {n}, {max_out}")
+    geo = _build.constants("nms_topk.cu")
+    n_pad = max(geo["kSeg"], 1 << (n - 1).bit_length())
+    header = 4 * geo["kHeaderWords"]
+    s_cap = min(max_out, n)
+    on_chip = header + 8 * n_pad + 4 * s_cap
+    if on_chip <= smem_bytes:
+        return NmsPlan(n, max_out, n_pad, on_chip, 0)
+    return NmsPlan(n, max_out, n_pad, header, n_pad + -(-s_cap // 2))
 
 
 def _kernel():
@@ -83,7 +73,8 @@ def _kernel():
             ctypes.c_void_p, ctypes.c_void_p,                  # boxes, scores
             ctypes.c_int, ctypes.c_int, ctypes.c_int,          # images, n, n_pad
             ctypes.c_int, ctypes.c_float,                      # max_out, iou threshold
-            ctypes.c_int, ctypes.c_int,                        # route, smem bytes
+            ctypes.c_void_p, ctypes.c_longlong,                # workspace, its words per image
+            ctypes.c_int,                                      # smem bytes
             ctypes.c_void_p, ctypes.c_void_p,                  # out idx, out valid
             ctypes.c_void_p, ctypes.c_int,                     # stream, device
         ]
@@ -134,10 +125,9 @@ def nms_topk_plain(
     return idx, valid
 
 
-def _nms_topk_cuda(boxes, scores, iou_threshold, max_out, plan: Optional[NmsPlan] = None):
+def _nms_topk_cuda(boxes, scores, iou_threshold, max_out):
     """The kernel over ``max_out`` steps (any number: steps with no box
-    alive give index 0, invalid) on ``plan`` (default: :func:`plan_nms_topk`'s
-    pick); returns ``(idx int64, valid bool)``."""
+    alive give index 0, invalid); returns ``(idx int64, valid bool)``."""
     n_img, n = scores.shape
     if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
         raise TypeError(f"nms_topk takes float32, got {boxes.dtype}, {scores.dtype}")
@@ -147,17 +137,17 @@ def _nms_topk_cuda(boxes, scores, iou_threshold, max_out, plan: Optional[NmsPlan
         raise ValueError("nms_topk takes contiguous boxes and scores")
     if boxes.device != scores.device:
         raise ValueError("boxes and scores on different devices")
-    if plan is None:
-        plan = plan_nms_topk(n, max_out)
-    elif (plan.n, plan.max_out) != (n, max_out):
-        raise ValueError(f"a plan for {plan.n} boxes and max_out {plan.max_out}, called on "
-                         f"{n} and {max_out}")
+    plan = plan_nms_topk(n, max_out)
     dev = boxes.device
     idx = torch.empty((n_img, max_out), dtype=torch.int64, device=dev)
     valid = torch.empty((n_img, max_out), dtype=torch.bool, device=dev)
+    # large N only: the scratch in global memory, one slice per image
+    ws = (torch.empty((n_img, plan.ws_words), dtype=torch.int64, device=dev)
+          if plan.ws_words else None)
     err = _kernel()(
         boxes.data_ptr(), scores.data_ptr(), n_img, n, plan.n_pad, max_out,
-        float(iou_threshold), ROUTES[plan.route], plan.smem_bytes, idx.data_ptr(), valid.data_ptr(),
+        float(iou_threshold), ws.data_ptr() if ws is not None else None, plan.ws_words,
+        plan.smem_bytes, idx.data_ptr(), valid.data_ptr(),
         torch._C._cuda_getCurrentRawStream(dev.index), dev.index,
     )
     _build.check(err, "nms_topk_launch")

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import chip_smoke
+from nndetection_tpu_torch.ops import _build
 from nndetection_tpu_torch.ops import instance_norm as inorm
 from nndetection_tpu_torch.ops import nms as onms
 
@@ -121,58 +122,75 @@ def test_in_stats_plan_small_card_and_edges():
         inorm.plan_in_stats(1, 3, 16, 8, 4, 8)  # no plane selected
 
 
-# (images, boxes, max_out) -> (route, padded keys, shared memory bytes)
+# (images, boxes, max_out) -> (padded keys, shared memory bytes, workspace
+# words per image): the scratch in shared memory up to 16384 boxes, in a
+# global workspace above
 NMS = {
-    (16, 1000, 100): ("on_chip", 1024, 37264),
-    (2, 10000, 100): ("global", 16384, 131472),
+    (16, 1000, 100): (1024, 8848, 0),
+    (2, 10000, 100): (16384, 131728, 0),
+    (2, 20000, 100): (32768, 256, 32818),
 }
+NMS_GEO = _build.constants("nms_topk.cu")
 
 
 def test_nms_table_is_the_smoke_shapes():
     assert sorted(NMS) == sorted(chip_smoke.NMS_SHAPES)
 
 
-def kernel_smem_need(n, max_out, n_pad, on_chip):
+def kernel_smem_need(n, max_out, n_pad, ws):
     """``nms_topk_launch``'s own check of the dynamic shared memory."""
-    n_al = 32 * -(-n // 32)
-    return 8 * n_pad + 4 * min(max_out, n) + (4 * 7 * n_al if on_chip else 0)
+    header = 4 * NMS_GEO["kHeaderWords"]
+    return header + (0 if ws else 8 * n_pad + 4 * min(max_out, n))
 
 
 @pytest.mark.parametrize("shape", list(NMS))
 def test_nms_plan(shape):
     _, n, max_out = shape
     plan = onms.plan_nms_topk(n, max_out)
-    assert (plan.route, plan.n_pad, plan.smem_bytes) == NMS[shape]
+    assert (plan.n_pad, plan.smem_bytes, plan.ws_words) == NMS[shape]
     assert (plan.n, plan.max_out) == (n, max_out)
-    assert plan.smem_bytes == kernel_smem_need(n, max_out, plan.n_pad, plan.route == "on_chip")
-    assert plan.smem_bytes <= onms.SMEM_MAX - onms.SMEM_STATIC
-    # the global route serves both shapes; the on-chip one only 1000 boxes
-    glob = onms.plan_nms_topk(n, max_out, route="global")
-    assert glob.route == "global"
-    assert glob.smem_bytes == kernel_smem_need(n, max_out, plan.n_pad, False)
-    if plan.route == "global":
-        with pytest.raises(ValueError):
-            onms.plan_nms_topk(n, max_out, route="on_chip")
+    assert plan.smem_bytes == kernel_smem_need(n, max_out, plan.n_pad, plan.ws_words)
+    assert plan.smem_bytes <= onms.SMEM_MAX
+    if plan.ws_words:  # the keys, then the references two to a word
+        assert plan.ws_words == plan.n_pad + -(-min(max_out, n) // 2)
 
 
-@pytest.mark.parametrize("n", [1, 2, 7, 31, 32, 33, 63, 65, 999, 1000, 1025, 5000, 6000, 16384])
+@pytest.mark.parametrize("n", [1, 2, 7, 31, 32, 33, 63, 65, 999, 1000, 1025, 5000, 6000, 16384,
+                               16385, 58113])
 def test_nms_plan_sizes(n):
     plan = onms.plan_nms_topk(n, 100)
-    assert plan.n_pad >= max(n, onms.MIN_PAD) and plan.n_pad & (plan.n_pad - 1) == 0
-    assert plan.n_pad < 2 * max(n, onms.MIN_PAD)
-    assert plan.route == ("on_chip" if n <= 5000 else "global")
-    assert plan.smem_bytes == kernel_smem_need(n, 100, plan.n_pad, plan.route == "on_chip")
+    seg = NMS_GEO["kSeg"]
+    assert plan.n_pad >= max(n, seg) and plan.n_pad & (plan.n_pad - 1) == 0
+    assert plan.n_pad < 2 * max(n, seg)
+    # shared memory up to 16384 boxes, beyond the workspace: no cap below
+    # the 58112 boxes the previous kernel took
+    assert (plan.ws_words > 0) == (n > 16384)
+    assert plan.smem_bytes == kernel_smem_need(n, 100, plan.n_pad, plan.ws_words)
 
 
 def test_nms_plan_limits():
     with pytest.raises(ValueError):
-        onms.plan_nms_topk(16385, 100)  # the keys alone exceed shared memory
-    with pytest.raises(ValueError):
         onms.plan_nms_topk(0, 100)
-    # every selection of 16384 boxes still fits on the global route
-    assert onms.plan_nms_topk(16384, 16384).route == "global"
-    # a smaller shared memory moves a size to the global route
-    assert onms.plan_nms_topk(1000, 100, smem_bytes=20000).route == "global"
+    with pytest.raises(ValueError):
+        onms.plan_nms_topk(10, 0)
+    # every selection of 16384 boxes: the references still fit beside the
+    # keys
+    plan = onms.plan_nms_topk(16384, 16384)
+    assert plan.ws_words == 0 and plan.smem_bytes == 256 + 8 * 16384 + 4 * 16384
+    # a smaller shared memory moves a size to the workspace
+    small = onms.plan_nms_topk(1000, 100, smem_bytes=8000)
+    assert small.ws_words == 1024 + 50 and small.smem_bytes == 4 * NMS_GEO["kHeaderWords"]
+
+
+def test_plans_read_the_kernel_sources():
+    """The geometry the plans use is the kernels' own: the constants parsed
+    from ``csrc``, and the kernel's header holds its counts and masks."""
+    assert NMS_GEO["kSeg"] == 2 * 32 and NMS_GEO["kChunk"] == 32
+    assert 2 + NMS_GEO["kThreads"] // 32 + NMS_GEO["kChunk"] <= NMS_GEO["kHeaderWords"]
+    geo = _build.constants("instance_norm_stats.cu")
+    assert (inorm.IN_STATS_CB, inorm.IN_STATS_THREADS, inorm.IN_STATS_HOLD,
+            inorm.IN_STATS_BLOCKS_PER_SM) == (geo["kMaxCB"], geo["kThreads"], geo["kHold"],
+                                              geo["kBlocksPerSm"])
 
 
 # ------------------------------------------------ the NMS kernel's algorithm
@@ -271,7 +289,7 @@ def kernel_sort(keys):
     """``sort_keys`` of ``csrc/nms_topk.cu`` in NumPy: each warp's 64 keys
     (lane l holds keys 64 s + l and 64 s + 32 + l) sorted through
     ``bitonic_step`` with shuffles for k <= 64, then for every larger k the
-    strides of 64 and more through shared memory and the rest in registers."""
+    strides of 64 and more through the scratch and the rest in registers."""
     keys = keys.copy()
     n_pad = len(keys)
     lane = np.arange(32)

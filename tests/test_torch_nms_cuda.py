@@ -1,14 +1,17 @@
 """The truncated NMS kernel (#7, ``csrc/nms_topk.cu``) on the card against
-its plain version ``nms_topk_plain``, on both routes of ``plan_nms_topk``
-(boxes in shared memory, boxes in a global workspace): the shapes of
-``chip_smoke.py``, scores quantised to 8 levels, an image with no valid
-score, ``max_out`` above the boxes left alive, N not a power of two, and two
-runs equal. Indices and valid flags must be identical. Imports neither JAX
-nor the JAX package, so that it runs on a machine with the card:
+its plain version ``nms_topk_plain``: the shapes of ``chip_smoke.py`` (the
+largest with its scratch in a global workspace), scores quantised to 8
+levels, an image with no valid score, ``max_out`` above the boxes left
+alive, N not a power of two with the scratch in shared memory and in the
+workspace, and two runs equal. Indices and valid flags must be identical.
+Imports neither JAX nor the JAX package, so that it runs on a machine with
+the card:
 
     python -m pytest -m cuda tests/test_torch_nms_cuda.py
 
 Every test needs a CUDA device and skips without one."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +28,16 @@ def cuda_device():
     return torch.device("cuda")
 
 
+@pytest.fixture(params=["shared", "workspace"])
+def scratch(request, monkeypatch):
+    """Where the kernel's scratch sits: the plan's choice, or the global
+    workspace at every size (a plan for a block with no room for it)."""
+    if request.param == "workspace":
+        monkeypatch.setattr(onms, "plan_nms_topk",
+                            functools.partial(onms.plan_nms_topk, smem_bytes=0))
+    return request.param
+
+
 def _inputs(device, n_img, n, seed, levels=None):
     boxes, scores = chip_smoke.nms_boxes(np.random.RandomState(seed), n_img, n)
     if levels:
@@ -32,11 +45,10 @@ def _inputs(device, n_img, n, seed, levels=None):
     return boxes.to(device), scores.to(device)
 
 
-def _check(boxes, scores, thr, max_out, route):
+def _check(boxes, scores, thr, max_out):
     n = scores.shape[1]
-    plan = onms.plan_nms_topk(n, max_out, route=route)
     n0 = LAUNCHES["nms_topk"]
-    idx, valid = onms._nms_topk_cuda(boxes, scores, thr, max_out, plan)
+    idx, valid = onms.nms_topk(boxes, scores, thr, max_out)
     torch.cuda.synchronize()
     assert LAUNCHES["nms_topk"] == n0 + 1
     assert idx.dtype == torch.int64 and valid.dtype == torch.bool
@@ -46,60 +58,56 @@ def _check(boxes, scores, thr, max_out, route):
     assert torch.equal(valid[:, :steps], p_valid)
     assert torch.equal(idx[:, :steps], p_idx.long())
     assert not valid[:, steps:].any() and not idx[:, steps:].any()
-    idx2, valid2 = onms._nms_topk_cuda(boxes, scores, thr, max_out, plan)
+    idx2, valid2 = onms.nms_topk(boxes, scores, thr, max_out)
     assert torch.equal(idx, idx2) and torch.equal(valid, valid2)
     return valid
 
 
-ROUTE_SHAPES = [((16, 1000, 100), "on_chip"), ((16, 1000, 100), "global"),
-                ((2, 10000, 100), "global")]
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("levels", [None, 8])
-@pytest.mark.parametrize("shape,route", ROUTE_SHAPES)
-def test_matches_plain(cuda_device, shape, route, levels):
+@pytest.mark.parametrize("shape", chip_smoke.NMS_SHAPES)
+def test_matches_plain(cuda_device, shape, levels):
     n_img, n, max_out = shape
     boxes, scores = _inputs(cuda_device, n_img, n, seed=n, levels=levels)
     for thr in (0.1, 0.6):
-        assert _check(boxes, scores, thr, max_out, route).any()
+        assert _check(boxes, scores, thr, max_out).any()
 
 
 @pytest.mark.cuda
-def test_on_chip_route_refuses_ten_thousand(cuda_device):
-    with pytest.raises(ValueError):
-        onms.plan_nms_topk(10000, 100, route="on_chip")
+def test_above_sixteen_thousand_boxes_uses_the_workspace(cuda_device):
+    """Beyond 16384 boxes the keys leave shared memory; the previous kernel
+    took up to 58112 boxes per image, and this one more."""
+    assert onms.plan_nms_topk(58113, 100).ws_words > 0
+    boxes, scores = _inputs(cuda_device, 1, 58113, seed=11, levels=8)
+    assert _check(boxes, scores, 0.5, 100).any()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["on_chip", "global"])
-def test_all_invalid_and_few_alive(cuda_device, route):
+def test_all_invalid_and_few_alive(cuda_device, scratch):
     boxes, scores = _inputs(cuda_device, 3, 777, seed=1)
     scores[0] = float("-inf")      # nothing to select
     scores[1, 12:] = float("-inf")  # 12 candidates, max_out 100
-    valid = _check(boxes, scores, 0.5, 100, route)
+    valid = _check(boxes, scores, 0.5, 100)
     assert not valid[0].any() and int(valid[1].sum()) <= 12
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["on_chip", "global"])
 @pytest.mark.parametrize("n,max_out", [(1, 1), (7, 10), (33, 33), (999, 300), (1025, 100),
-                                       (4097, 50)])
-def test_sizes_not_a_power_of_two(cuda_device, route, n, max_out):
+                                       (4097, 50), (16385, 100)])
+def test_sizes_not_a_power_of_two(cuda_device, scratch, n, max_out):
     boxes, scores = _inputs(cuda_device, 2, n, seed=n + 1, levels=8)
-    _check(boxes, scores, 0.3, max_out, route)
+    _check(boxes, scores, 0.3, max_out)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["on_chip", "global"])
-def test_tied_duplicates_and_signed_zeros(cuda_device, route):
+def test_tied_duplicates_and_signed_zeros(cuda_device, scratch):
     """Identical boxes with equal scores: only the lowest index of each
     group survives; -0 and +0 scores tie."""
     boxes, _ = _inputs(cuda_device, 1, 40, seed=3)
     boxes = boxes[:, :10].repeat_interleave(4, dim=1).contiguous()
     scores = torch.zeros((1, 40), device=cuda_device)
     scores[0, 1::2] = -0.0
-    valid = _check(boxes, scores, 0.5, 40, route)
+    valid = _check(boxes, scores, 0.5, 40)
     assert int(valid.sum()) <= 10
 
 
