@@ -25,7 +25,12 @@ Phases, each printing its findings:
    fused layers and at edge shapes, every route at least once, two runs bit
    for bit equal, one JSON line of every LUNA shape's route and times; the IoU matrix (#6) at
    1000 and 4096 boxes, the suppression words (#8) and the keep-scan at
-   1000 and 4096, the WBC cluster loop at 1000 boxes x 2 classes), with
+   1000 and 4096; the WBC cluster kernel at 1000 boxes x 2 classes, at the
+   consolidate phase's two real inputs (the 8-flip case, one class) and at
+   4161, 20000 and 57600 boxes of one class (the scratch in a global
+   workspace), bit for bit equal to its plain version, two calls equal, one
+   launch per call, wall, device and host time, the peak memory of one call
+   at 20000, one JSON line of every input's times), with
    median times from CUDA events, the time of one PyTorch call computing
    the same function where there is one, and the bound (HBM bytes, or
    float32 or tensor-core flops, at the H100's published peaks);
@@ -40,15 +45,15 @@ Phases, each printing its findings:
 6. serve: ``Predictor.predict_case`` on a 140x320x320 case without TTA and a
    96x256x256 case with 8-flip TTA, each twice (first call, then warm); the
    kernels' launch counts are reset just before and must all have risen
-   (the default ensembler's WBC runs on the card: #6 and the cluster loop);
+   (the default ensembler's WBC runs on the card: the cluster kernel);
 7. train: ``Trainer.train_epoch`` on the LUNA plan at batch 8 (bf16, remat
    as the config sets it), 2 warm-up steps then 5 timed ones, on a seeded
    batch made as ``bench.py`` makes it; the launch counts are reset just
    before and all four instance-norm kernels must have run; every loss
    finite, positives matched, parameters changed;
 8. consolidate: the 96x256x256 8-flip case with ``BoxEnsemblerSelective``
-   and with ``BoxEnsemblerWBC``, its whole-case WBC on the card (#6 and the
-   cluster loop), then the same ensembler state consolidated again on the
+   and with ``BoxEnsemblerWBC``, its whole-case WBC on the card (the cluster
+   kernel; no path launches #6), then the same ensembler state consolidated again on the
    card, with the device formulation on the CPU (the same detections, same
    bits) and on the host in NumPy (float64), each timed;
 9. NMS mask: ``batched_nms_mask`` (#8 and the keep-scan) on the card over
@@ -66,21 +71,22 @@ Phases, each printing its findings:
 
 Then one JSON line with each kernel's route, source, launches in the phase
 that drives it (serve for NMS, train fused for #5, train for the instance
-norm, consolidate for #6 and the cluster loop, NMS mask for #8 and the
-keep-scan), max error, times and bound, the ``nvidia-smi`` line, and last
+norm, consolidate for the cluster kernel, NMS mask for #8 and the
+keep-scan; #6, which no path launches, in the kernels phase), max error,
+times and bound, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
 non-zero and no result line is printed.
 
 ``--profile=DIR`` adds a ``torch.profiler`` trace of one train step, default
 and fused (kernel time by name; the tables into ``DIR/train_profile.txt`` and
 ``DIR/train_fused_profile.txt``). ``--phases=a,b,...``
-runs only the phases named (of ``build``, ``kernels``, ``conv``, ``norm``
-and ``nms`` (#5's, #1's and #7's checks alone), ``reference``, ``forward``,
-``serve``, ``consolidate``, ``nms_mask``, ``sweep``, ``train``,
-``serve_fused``, ``train_fused``); the device phase always runs, the
-``kernels`` JSON line only when every phase it reads ran. With no argument
-every phase but ``conv``, ``norm`` and ``nms`` runs (``kernels`` holds
-them).
+runs only the phases named (of ``build``, ``kernels``, ``conv``, ``norm``,
+``nms`` and ``wbc`` (#5's, #1's, #7's and the cluster kernel's checks
+alone), ``reference``, ``forward``, ``serve``, ``consolidate``,
+``nms_mask``, ``sweep``, ``train``, ``serve_fused``, ``train_fused``); the
+device phase always runs, the ``kernels`` JSON line only when every phase
+it reads ran. With no argument every phase but ``conv``, ``norm``, ``nms``
+and ``wbc`` runs (``kernels`` holds them).
 """
 from __future__ import annotations
 
@@ -124,10 +130,14 @@ CONV_SHAPES = [
 CONV_TRAIN = ((8, 96, 128, 128, 32), 32)
 # consolidation: #6 at the WBC's ensemble_topk (1000) and beyond, #8 and the
 # keep-scan at the model-level NMS's model_topk (1000) and beyond, the cluster
-# loop at 1000 boxes of 2 classes
+# kernel at 1000 boxes of 2 classes, then at one class of the first N whose
+# scratch leaves shared memory, of 20000 boxes (where one call's peak memory
+# is reported) and of the previous kernel's cap
 IOU_SIZES = (1000, 4096)
 SUPPRESSION_SIZES = (1000, 4096)
 WBC_SHAPE = (1000, 2)
+WBC_SIZES = (4161, 20000, 57600)
+WBC_PEAK_N = 20000
 # the H100 SXM's published peaks (NVIDIA's data sheet, dense): HBM3 bytes/s,
 # bf16 tensor-core and float32 non-tensor flops/s
 PEAK_BYTES = 3.35e12
@@ -163,9 +173,10 @@ TOL = {
     # the IoU matrix: the Pallas formula's order in IEEE float32 on both
     # sides (-fmad=false): bit-equal, at most one float32 ulp allowed
     "iou_ulps": 1,
-    # the WBC on the card against its device formulation on the CPU: float32
-    # on both, summed in the same order (the plain cluster loop follows the
-    # kernel's); the bits agree, this is the stated bound
+    # the consolidated case on the card against its device formulation on
+    # the CPU: float32 on both, summed in the same order (the plain cluster
+    # loop follows the kernel's); the bits agree, this is the stated bound
+    # (the kernel alone is held to its plain version bit for bit)
     "wbc": dict(rtol=1e-5, atol=1e-6),
 }
 KERNELS = {
@@ -417,8 +428,8 @@ def _grad_kernels(x4, dy4, gamma, start, step, reps):
 
 def phase_kernels(device, stages=LUNA_STAGES, nms_shapes=NMS_SHAPES, train_stage0=TRAIN_STAGE0,
                   conv_shapes=CONV_SHAPES, conv_train=CONV_TRAIN, iou_sizes=IOU_SIZES,
-                  suppression_sizes=SUPPRESSION_SIZES, wbc_shape=WBC_SHAPE, in_batches=IN_BATCHES,
-                  reps=20):
+                  suppression_sizes=SUPPRESSION_SIZES, wbc_shape=WBC_SHAPE, wbc_sizes=WBC_SIZES,
+                  in_batches=IN_BATCHES, reps=20):
     """Each kernel against its plain version; returns per-kernel max error
     and the times at the main path's representative shape (stage 0, bf16,
     the default plane_sub:8 schedule for IN, at batch 2 for the forward and
@@ -487,7 +498,8 @@ def phase_kernels(device, stages=LUNA_STAGES, nms_shapes=NMS_SHAPES, train_stage
     summary["nms_topk"].update(nms_kernel_checks(device, nms_shapes, reps))
     log(f"[kernels] took {time.perf_counter() - t0:.1f} s so far")
     summary["conv3d_in_stats"].update(conv_kernel_checks(device, conv_shapes, conv_train))
-    summary.update(consolidation_kernel_checks(device, iou_sizes, suppression_sizes, wbc_shape, reps))
+    summary.update(consolidation_kernel_checks(device, iou_sizes, suppression_sizes, reps))
+    summary["wbc_cluster"].update(wbc_kernel_checks(device, wbc_shape, wbc_sizes, reps=reps))
     return summary
 
 
@@ -730,14 +742,13 @@ def clumped_boxes(rng, n, extent=300.0):
 
 
 def consolidation_kernel_checks(device, iou_sizes=IOU_SIZES, suppression_sizes=SUPPRESSION_SIZES,
-                                wbc_shape=WBC_SHAPE, reps=20) -> dict:
-    """#6, #8, the keep-scan and the WBC cluster loop against their plain
-    versions on the card; the summary of each is its first shape."""
+                                reps=20) -> dict:
+    """#6, #8 and the keep-scan against their plain versions on the card;
+    the summary of each is its first shape."""
     from nndetection_tpu_torch.ops.iou_matrix import iou_matrix, iou_matrix_plain
     from nndetection_tpu_torch.ops.suppression import (
         nms_keep_scan, nms_keep_scan_plain, num_words, suppression_matrix,
         suppression_matrix_plain)
-    from nndetection_tpu_torch.ops.wbc_cluster import wbc_cluster, wbc_cluster_plain
 
     rng = np.random.RandomState(3)
     out = {}
@@ -797,35 +808,146 @@ def consolidation_kernel_checks(device, iou_sizes=IOU_SIZES, suppression_sizes=S
             note(k, 0.0, ms=times[k], plain_ms=times[k + "_plain"], library_ms=None,
                  shape=f"{n} boxes, {len(kept)} kept" if k == "nms_keep_scan" else f"{n} boxes",
                  **bnd)
+    return out
 
-    n, classes = wbc_shape
-    b = torch.from_numpy(clumped_boxes(rng, n)).to(device)
-    scores = torch.from_numpy(rng.rand(n).astype(np.float32)).to(device)
-    weights = torch.from_numpy((0.5 + rng.rand(n)).astype(np.float32)).to(device)
-    n_exp = torch.from_numpy(rng.randint(1, 9, n).astype(np.float32)).to(device)
-    labels = torch.from_numpy(rng.randint(0, classes, n).astype(np.int32)).to(device)
-    valid = torch.ones(n, dtype=torch.bool, device=device)
-    ious = iou_matrix(b, b)
-    args = (ious, b, scores, weights, n_exp, labels, valid, classes, 0.5)
-    got, want = wbc_cluster(*args, 0.0), wbc_cluster_plain(*args, 0.0)
-    if not torch.equal(got[2], want[2]):
-        raise AssertionError("wbc_cluster: clusters differ from the plain version")
-    err = max(check_close("wbc_cluster scores", got[1], want[1], **TOL["wbc"]),
-              check_close("wbc_cluster boxes", got[0], want[0], **TOL["wbc"]))
-    # every cluster the loop forms, emitted or not: all are emitted above -inf
-    seeds = int(wbc_cluster(*args, float("-inf"))[2].sum())
-    ms = median_ms(lambda: wbc_cluster(*args, 0.0), reps)
-    plain_ms = median_ms(lambda: wbc_cluster_plain(*args, 0.0), 3, 1)
-    # the seeds' IoU rows and the per-box inputs read once, the outputs
-    # written once; per cluster an arg-max and a membership test over the N
-    # boxes, ~12 operations per box for the sums
-    bnd = bound(4 * seeds * n + nbytes(b, scores, weights, n_exp, labels, valid, *got),
-                seeds * 2 * n + 12 * n, PEAK_F32)
-    log(f"[kernels] wbc_cluster {n} boxes x {classes} classes: {seeds} clusters, "
-        f"{int(got[2].sum())} emitted, max abs err {err:.2e}, {ms:.4f} ms (plain {plain_ms:.4f}), "
-        f"bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']})")
-    note("wbc_cluster", err, ms=ms, plain_ms=plain_ms, library_ms=None,
-         shape=f"{n} boxes x {classes} classes, {seeds} clusters", **bnd)
+
+def wbc_inputs(rng, n, classes):
+    """Seeded inputs of the cluster kernel, CPU tensors: ``n`` boxes in
+    clumps over an extent that grows as n^(1/3) from 300 at 1000 boxes (as
+    dense as the table shape), scores, weights, expected counts, labels of
+    ``classes`` classes, all valid."""
+    boxes = clumped_boxes(rng, n, 300.0 * max(n / 1000, 1) ** (1 / 3))
+    scores = rng.rand(n).astype(np.float32)
+    weights = (0.5 + rng.rand(n)).astype(np.float32)
+    n_exp = rng.randint(1, 9, n).astype(np.float32)
+    labels = rng.randint(0, classes, n).astype(np.int32)
+    return ([torch.from_numpy(a) for a in (boxes, scores, weights, n_exp, labels)]
+            + [torch.ones(n, dtype=torch.bool)])
+
+
+def table_wbc_input(shape=WBC_SHAPE):
+    """The table shape's inputs: the draws that follow those of
+    ``consolidation_kernel_checks`` from ``RandomState(3)``, the boxes every
+    run has timed the cluster kernel on since it was ported."""
+    rng = np.random.RandomState(3)
+    for n in IOU_SIZES:
+        clumped_boxes(rng, n)
+    for n in SUPPRESSION_SIZES:
+        clumped_boxes(rng, n)
+        rng.rand(n)
+    return wbc_inputs(rng, *shape)
+
+
+def consolidation_wbc_inputs(device, shape=(96, 256, 256), patch=(96, 128, 128),
+                             names=("BoxEnsemblerSelective", "BoxEnsemblerWBC")) -> dict:
+    """The cluster kernel's arguments in the consolidate phase's 8-flip case
+    (one class), per ensembler: recorded from ``batched_wbc`` during a
+    ``predict_case`` on the card, the same case and weights as that phase."""
+    import nndetection_tpu_torch.core.boxes.wbc as core_wbc
+    from nndetection_tpu_torch.inference.predictor import ModelBundle, Predictor
+    from nndetection_tpu_torch.models.retina_unet import RetinaUNet
+
+    cfg = luna_cfg(patch)
+    params = RetinaUNet(cfg, torch.Generator().manual_seed(0)).state_dict()
+    case = np.random.RandomState(5).standard_normal((1, *shape)).astype(np.float32)
+    kernel, out = core_wbc.wbc_cluster, {}
+    try:
+        for name in names:
+            calls = []
+            core_wbc.wbc_cluster = lambda *a: calls.append(a) or kernel(*a)
+            Predictor([ModelBundle(cfg=cfg, params=params, name="luna")], tta=True,
+                      ensembler=name, device=device).predict_case(case)
+            out[name] = calls[-1]
+    finally:
+        core_wbc.wbc_cluster = kernel
+    return out
+
+
+def wbc_kernel_checks(device, shape=WBC_SHAPE, sizes=WBC_SIZES, real=True, reps=20) -> dict:
+    """The cluster kernel (``wbc_cluster``) against its plain version on the
+    CPU copies of the same inputs, at the table shape, at the consolidate
+    phase's real inputs (``real``) and at one class of each of ``sizes``
+    boxes: all three outputs bit for bit, two calls equal, one launch per
+    call; wall, device and host times; at the table shape also the plain
+    version on the card, and ``batched_wbc`` as one launch and none of #6;
+    at ``WBC_PEAK_N`` the peak memory of one call. One JSON line holds every
+    input's times. The summary is the table shape."""
+    from nndetection_tpu_torch.core.boxes.wbc import batched_wbc
+    from nndetection_tpu_torch.ops import LAUNCHES
+    from nndetection_tpu_torch.ops.wbc_cluster import plan_wbc, wbc_cluster, wbc_cluster_plain
+
+    cases = [(f"{shape[0]} boxes x {shape[1]} classes", table_wbc_input(shape),
+              (shape[1], 0.5, 0.0, 1.0))]
+    if real:
+        for name, args in consolidation_wbc_inputs(device).items():
+            cases.append((f"{name} 8-flip case, {args[0].shape[0]} boxes x {args[6]} class",
+                          list(args[:6]), tuple(args[6:])))
+    rng = np.random.RandomState(11)
+    for n in sizes:
+        cases.append((f"{n} boxes x 1 class", wbc_inputs(rng, n, 1), (1, 0.5, 0.0, 1.0)))
+    out, rows = {}, []
+    for i, (label, inputs, rest) in enumerate(cases):
+        dev_in = [t.to(device) for t in inputs]
+        cpu_in = [t.cpu() for t in inputs]
+        n = dev_in[1].shape[0]
+        n0 = LAUNCHES["wbc_cluster"]
+        got, again = wbc_cluster(*dev_in, *rest), wbc_cluster(*dev_in, *rest)
+        torch.cuda.synchronize()
+        if LAUNCHES["wbc_cluster"] != n0 + 2:
+            raise AssertionError(f"wbc_cluster {label}: {LAUNCHES['wbc_cluster'] - n0} launches "
+                                 "in two calls")
+        t0 = time.perf_counter()
+        want = wbc_cluster_plain(*cpu_in, *rest)
+        plain_cpu_s = time.perf_counter() - t0
+        for g, a, w in zip(got, again, want):
+            if not (torch.equal(g, a) and torch.equal(g.cpu(), w)):
+                raise AssertionError(f"wbc_cluster {label}: outputs differ from the plain version "
+                                     "or between two calls")
+        classes, iou_thr, _, mw = rest
+        seeds = int(wbc_cluster(*dev_in, classes, iou_thr, float("-inf"), mw)[2].sum())
+        t = three_times(lambda: wbc_cluster(*dev_in, *rest), reps if n <= 5000 else 5)
+        plan = plan_wbc(n)
+        remaining = int((cpu_in[5] & torch.isfinite(cpu_in[1]) & (cpu_in[4] < classes)).sum())
+        # the function's work, whatever computes it: the inputs read once,
+        # the outputs written once, one IoU (~25 operations) and the ten sums
+        # (~12) per remaining box
+        bnd = bound(nbytes(*dev_in, *got), 37 * remaining, PEAK_F32)
+        row = dict(input=label, n=n, classes=classes, clusters=seeds, emitted=int(got[2].sum()),
+                   **t, bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
+                   smem_bytes=plan.smem_bytes, workspace_bytes=8 * plan.ws_words * classes,
+                   plain_cpu_s=plain_cpu_s)
+        extra = ""
+        if n == WBC_PEAK_N:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+            wbc_cluster(*dev_in, *rest)
+            torch.cuda.synchronize()
+            row["peak_bytes"] = torch.cuda.max_memory_allocated(device) - base
+            extra = (f"; one call's peak memory {row['peak_bytes'] / 2 ** 20:.2f} MiB (an N x N "
+                     f"float32 IoU matrix: {4 * n * n / 2 ** 30:.2f} GiB)")
+        if i == 0:
+            row["plain_ms"] = median_ms(lambda: wbc_cluster_plain(*dev_in, *rest), 3, 1)
+            before = dict(LAUNCHES)
+            boxes, scores, weights, n_exp, labels, valid = dev_in
+            batched_wbc(boxes, scores, labels, weights, n_exp, valid, iou_thr, rest[2],
+                        missing_weight=mw, num_classes=classes)
+            torch.cuda.synchronize()
+            delta = {k: LAUNCHES[k] - before.get(k, 0) for k in ("wbc_cluster", "iou_matrix")}
+            if delta != {"wbc_cluster": 1, "iou_matrix": 0}:
+                raise AssertionError(f"batched_wbc: launches {delta}, want one wbc_cluster, "
+                                     "no iou_matrix")
+            extra += f"; plain on the card {row['plain_ms']:.4f} ms; batched_wbc one launch, no #6"
+            out = dict(t, plain_ms=row["plain_ms"], library_ms=None,
+                       shape=f"{label}, {seeds} clusters", **bnd)
+        log(f"[wbc] {label}: {seeds} clusters, {row['emitted']} emitted, bits equal to the plain "
+            f"version and between two calls; wall {t['ms']:.4f} ms, device {t['device_ms']:.4f}, "
+            f"host {t['host_ms']:.4f}; bound {bnd['bound_ms']:.5f} ({bnd['bound_by']}); smem "
+            f"{plan.smem_bytes} B, workspace {row['workspace_bytes']} B; plain on the CPU "
+            f"{plain_cpu_s:.2f} s" + extra)
+        rows.append(row)
+    print(json.dumps({"wbc_shapes": rows}), flush=True)
+    out["max_abs_err"] = 0.0
     return out
 
 
@@ -1093,8 +1215,8 @@ def phase_forward(device, patch=(96, 128, 128), batch=2) -> None:
         + f"; {ms:.2f} ms per forward (median of 5)")
 
 
-SERVE_KERNELS = ("in_stats", "in_apply", "nms_topk", "iou_matrix", "wbc_cluster")
-CONSOLIDATE_KERNELS = ("iou_matrix", "wbc_cluster")
+SERVE_KERNELS = ("in_stats", "in_apply", "nms_topk", "wbc_cluster")
+CONSOLIDATE_KERNELS = ("wbc_cluster",)
 NMS_MASK_KERNELS = ("suppression_matrix", "nms_keep_scan")
 TRAIN_KERNELS = ("in_stats", "in_apply", "in_grad_stats", "in_grad_input")
 # conv3d_in_stats launches per forward of the LUNA plan under
@@ -1493,15 +1615,16 @@ def profile_train_step(trainer, state, targets, out_dir, label="train") -> None:
         log(f"[profile] {line}")
 
 
-PHASES = ("build", "kernels", "conv", "norm", "nms", "reference", "forward", "serve",
+PHASES = ("build", "kernels", "conv", "norm", "nms", "wbc", "reference", "forward", "serve",
           "consolidate", "nms_mask", "sweep", "train", "serve_fused", "train_fused")
 # the checks of one kernel alone, which ``kernels`` includes
-KERNEL_PHASES = ("conv", "norm", "nms")
+KERNEL_PHASES = ("conv", "norm", "nms", "wbc")
 
 
 def parse_phases(argv) -> tuple:
-    """``--phases=a,b,...`` (default: all but ``conv``, ``norm`` and ``nms``,
-    which ``kernels`` includes: #5's, #1's and #7's checks alone).
+    """``--phases=a,b,...`` (default: all but ``conv``, ``norm``, ``nms`` and
+    ``wbc``, which ``kernels`` includes: #5's, #1's, #7's and the cluster
+    kernel's checks alone).
     ``nms_mask`` runs on ``consolidate``'s ensemblers, so it brings that
     phase along."""
     arg = next((a.split("=", 1)[1] for a in argv if a.startswith("--phases=")), None)
@@ -1517,6 +1640,8 @@ def parse_phases(argv) -> tuple:
 
 
 def main() -> None:
+    from nndetection_tpu_torch.ops import LAUNCHES
+
     profile_dir = next((a.split("=", 1)[1] for a in sys.argv[1:]
                         if a.startswith("--profile=")), None)
     phases = parse_phases(sys.argv[1:])
@@ -1527,7 +1652,9 @@ def main() -> None:
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
+        LAUNCHES.clear()
         summary = phase_kernels(device)
+        launches["kernels"] = dict(LAUNCHES)
     else:
         if "conv" in phases:
             conv_kernel_checks(device)
@@ -1535,6 +1662,8 @@ def main() -> None:
             norm_kernel_checks(device)
         if "nms" in phases:
             nms_kernel_checks(device)
+        if "wbc" in phases:
+            wbc_kernel_checks(device)
     if "reference" in phases:
         phase_reference(device)
         phase_reference_fused(device)
@@ -1557,10 +1686,11 @@ def main() -> None:
         launches["train fused"] = phase_train_fused(device, train,
                                                     profile_dir=profile_dir)["launches"]
     # each kernel's launches in the phase that drives it: NMS in serving,
-    # the instance norm in training, #5 in the fused training, #6 and the
-    # cluster loop in the consolidation, #8 and the keep-scan in the NMS mask
+    # the instance norm in training, #5 in the fused training, the cluster
+    # kernel in the consolidation, #8 and the keep-scan in the NMS mask; #6,
+    # which no path launches, in the kernels phase
     drives = {"nms_topk": "serve", "conv3d_in_stats": "train fused",
-              "iou_matrix": "consolidate", "wbc_cluster": "consolidate",
+              "iou_matrix": "kernels", "wbc_cluster": "consolidate",
               "suppression_matrix": "nms mask", "nms_keep_scan": "nms mask"}
     if summary is not None and all(drives.get(n, "train") in launches for n in KERNELS):
         kernels = []

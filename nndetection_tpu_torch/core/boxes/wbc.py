@@ -6,9 +6,9 @@ score-weighted average box, with a score dampened by the number of *missing*
 expected predictions.
 
 :func:`wbc` and :func:`batched_wbc` are the device formulation, float32 with
-outputs padded to ``[N]`` per class and a validity mask: the IoU matrix comes
-from :func:`nndetection_tpu_torch.ops.iou_matrix.iou_matrix` (kernel #6) and
-the cluster loop from :func:`nndetection_tpu_torch.ops.wbc_cluster.wbc_cluster`.
+outputs padded to ``[N]`` per class and a validity mask, in one launch of
+the cluster kernel (:func:`nndetection_tpu_torch.ops.wbc_cluster.wbc_cluster`),
+which computes the IoUs it needs on chip: no ``N x N`` matrix.
 :func:`wbc_np` and :func:`batched_wbc_np` are the host NumPy copy, float64.
 """
 from __future__ import annotations
@@ -20,7 +20,6 @@ import torch
 
 from nndetection_tpu_torch.core.boxes.ops import box_size, prod_last
 from nndetection_tpu_torch.core.boxes.ops_np import box_area_np, box_iou_np
-from nndetection_tpu_torch.ops.iou_matrix import iou_matrix
 from nndetection_tpu_torch.ops.wbc_cluster import wbc_cluster
 
 
@@ -59,7 +58,7 @@ def batched_wbc(
     if use_area:
         w = w * prod_last(box_size(boxes32))
     ob, os_, ov = wbc_cluster(
-        iou_matrix(boxes32, boxes32), boxes32, scores.float().contiguous(), w.contiguous(),
+        boxes32, scores.float().contiguous(), w.contiguous(),
         n_exp_preds.float().contiguous(), labels.to(torch.int32).contiguous(),
         valid.bool().contiguous(), num_classes, iou_thresh, score_thresh, missing_weight)
     out_labels = torch.arange(num_classes, dtype=torch.int32, device=boxes.device)

@@ -1,8 +1,10 @@
 // Pairwise 3D IoU matrix for Hopper (sm_90a).
 //
 // Replaces: nndetection_tpu/ops/pallas_ops.py::_iou_kernel (called by
-// iou_matrix_pallas), the N x N IoU of the JAX package's device WBC
-// (core/boxes/wbc.py:59). Same function: out[i, j] = inter / max(union,
+// iou_matrix_pallas). No path of either package launches it: the JAX
+// package's device WBC takes jnp box_iou (core/boxes/wbc.py:59), the port's
+// computes its IoUs on chip (wbc_cluster.cu). Same function: out[i, j] =
+// inter / max(union,
 // 1e-12) of row box i of boxes1 [N, 6] and column box j of boxes2 [M, 6],
 // boxes as (x1, y1, x2, y2, z1, z2).
 //
@@ -17,13 +19,15 @@
 // kernel's 256 x 256 tiles and component-major layout exist for the TPU's
 // (8, 128) vector tiling and do not carry over.
 //
-// Rounding: the Pallas formula's order, inter = (max(dx,0)*max(dy,0))*
-// max(dz,0), volumes ((x2-x1)*(y2-y1))*(z2-z1), union = (vol1+vol2)-inter,
-// IEEE division; with -fmad=false nothing is contracted, so the result
-// equals the plain PyTorch version's bit for bit.
+// Rounding: the Pallas formula's order (box_iou and volume of
+// box_geometry.cuh, shared with the NMS and WBC kernels), IEEE division; with
+// -fmad=false nothing is contracted, so the result equals the plain PyTorch
+// version's bit for bit.
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "box_geometry.cuh"
 
 namespace {
 
@@ -31,10 +35,6 @@ constexpr int kCols = 32;       // columns per block: one per thread of a warp
 constexpr int kRows = 32;       // rows per block
 constexpr int kThreadRows = 8;  // warps per block; each covers kRows / 8 rows
 constexpr int kStride = 7;      // 6 coordinates + volume; odd, so no bank conflicts
-
-__device__ __forceinline__ float volume(const float* b) {
-  return ((b[2] - b[0]) * (b[3] - b[1])) * (b[5] - b[4]);
-}
 
 __global__ void __launch_bounds__(kCols * kThreadRows)
 iou_matrix_kernel(const float* __restrict__ boxes1,  // [N, 6]
@@ -68,19 +68,14 @@ iou_matrix_kernel(const float* __restrict__ boxes1,  // [N, 6]
 
   const int j = col0 + threadIdx.x;
   if (j >= m) return;
-  const float* cb = &s_cols[threadIdx.x * kStride];
-  const float bx1 = cb[0], by1 = cb[1], bx2 = cb[2], by2 = cb[3], bz1 = cb[4], bz2 = cb[5];
-  const float vol2 = cb[6];
+  float col[kStride];  // this thread's column box, in registers
+#pragma unroll
+  for (int f = 0; f < kStride; ++f) col[f] = s_cols[threadIdx.x * kStride + f];
   for (int r = threadIdx.y; r < kRows; r += kThreadRows) {
     const int i = row0 + r;
     if (i >= n) break;
-    const float* rb = &s_rows[r * kStride];  // one address per warp: a broadcast
-    const float ix = fmaxf(fminf(rb[2], bx2) - fmaxf(rb[0], bx1), 0.0f);
-    const float iy = fmaxf(fminf(rb[3], by2) - fmaxf(rb[1], by1), 0.0f);
-    const float iz = fmaxf(fminf(rb[5], bz2) - fmaxf(rb[4], bz1), 0.0f);
-    const float inter = (ix * iy) * iz;
-    const float uni = fmaxf((rb[6] + vol2) - inter, 1e-12f);
-    out[static_cast<size_t>(i) * m + j] = inter / uni;
+    // the row box: one address per warp, a broadcast
+    out[static_cast<size_t>(i) * m + j] = box_iou(&s_rows[r * kStride], col);
   }
 }
 

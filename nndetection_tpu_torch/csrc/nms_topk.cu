@@ -34,7 +34,9 @@
 //   workspace the caller provides, one slice per image, where the same code
 //   runs through the same generic pointers (each barrier also orders the
 //   block's global writes). The caller's plan (ops/nms.py::plan_nms_topk)
-//   reads kSeg and kHeaderWords from this file and sizes both.
+//   reads kHeaderWords from this file and kSeg from box_geometry.cuh, whose
+//   sort network and IoU this kernel shares with iou_matrix.cu and
+//   wbc_cluster.cu, and sizes both.
 //
 // Rounding: the IoU is computed exactly as the Pallas kernel writes it, the
 // selected box first: inter = max(dx,0)*max(dy,0)*max(dz,0), union =
@@ -48,99 +50,17 @@
 #include <cmath>
 #include <cstdint>
 
+#include "box_geometry.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 32;        // candidates per chunk: one per lane
-constexpr int kSeg = 64;          // keys a warp sorts in registers: two per lane
 constexpr int kFields = 7;        // a box in registers: x1, y1, x2, y2, z1, z2, volume
 constexpr int kHeaderWords = 64;  // shared memory ahead of the scratch: counts, masks
 static_assert(2 + kWarps + kChunk <= kHeaderWords, "the header holds the block's counts and masks");
-constexpr unsigned kAll = 0xffffffffu;
-
-// ascending order of the key: score descending, then index ascending
-__device__ __forceinline__ unsigned long long sort_key(float s, int i) {
-  if (s == 0.0f) s = 0.0f;  // -0 compares equal to +0: both take the index order
-  const uint32_t u = __float_as_uint(s);
-  const uint32_t asc = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return (static_cast<unsigned long long>(~asc) << 32) | static_cast<uint32_t>(i);
-}
-
-// IoU(k, b) > thr, the selected box k first
-__device__ __forceinline__ bool iou_above(const float* k, const float* b, float thr) {
-  const float ix = fmaxf(fminf(k[2], b[2]) - fmaxf(k[0], b[0]), 0.0f);
-  const float iy = fmaxf(fminf(k[3], b[3]) - fmaxf(k[1], b[1]), 0.0f);
-  const float iz = fmaxf(fminf(k[5], b[5]) - fmaxf(k[4], b[4]), 0.0f);
-  const float inter = (ix * iy) * iz;
-  const float uni = fmaxf((k[6] + b[6]) - inter, 1e-12f);
-  return inter / uni > thr;
-}
-
-__device__ __forceinline__ float volume(const float* b) {
-  return ((b[2] - b[0]) * (b[3] - b[1])) * (b[5] - b[4]);
-}
-
-// one bitonic compare-exchange of keys e and e ^ j held by lanes of a warp
-// (j < 32) or by one lane (j = 32: a holds e, b holds e + 32)
-__device__ __forceinline__ void bitonic_step(unsigned long long& a, unsigned long long& b,
-                                             int e0, int k, int j, int lane) {
-  if (j == 32) {
-    if ((a > b) == ((e0 & k) == 0)) {
-      const unsigned long long t = a;
-      a = b;
-      b = t;
-    }
-    return;
-  }
-  const unsigned long long pa = __shfl_xor_sync(kAll, a, j);
-  const unsigned long long pb = __shfl_xor_sync(kAll, b, j);
-  const bool lower = (lane & j) == 0;
-  // the lower element of an ascending pair keeps the min, and so on
-  a = (lower == ((e0 & k) == 0)) ? (a < pa ? a : pa) : (a < pa ? pa : a);
-  b = (lower == (((e0 + 32) & k) == 0)) ? (b < pb ? b : pb) : (b < pb ? pb : b);
-}
-
-// ascending bitonic sort of keys[0, n_pad), n_pad a power of two >= 64
-__device__ void sort_keys(unsigned long long* keys, int n_pad, int tid) {
-  const int lane = tid & 31, warp = tid >> 5;
-  const int n_seg = n_pad / kSeg;
-  // k = 2 .. 64: every pair inside one warp's 64 keys
-  for (int seg = warp; seg < n_seg; seg += kWarps) {
-    const int e0 = seg * kSeg + lane;
-    unsigned long long a = keys[e0], b = keys[e0 + 32];
-    for (int k = 2; k <= kSeg; k <<= 1) {
-      for (int j = k >> 1; j > 0; j >>= 1) bitonic_step(a, b, e0, k, j, lane);
-    }
-    keys[e0] = a;
-    keys[e0 + 32] = b;
-  }
-  __syncthreads();
-  for (int k = 2 * kSeg; k <= n_pad; k <<= 1) {
-    // strides of 64 and more through the scratch, one barrier each
-    for (int j = k >> 1; j >= kSeg; j >>= 1) {
-      for (int p = tid; p < (n_pad >> 1); p += kThreads) {
-        const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-        const int l = i | j;
-        const unsigned long long a = keys[i], c = keys[l];
-        if ((a > c) == ((i & k) == 0)) {
-          keys[i] = c;
-          keys[l] = a;
-        }
-      }
-      __syncthreads();
-    }
-    // strides 32 .. 1 in registers
-    for (int seg = warp; seg < n_seg; seg += kWarps) {
-      const int e0 = seg * kSeg + lane;
-      unsigned long long a = keys[e0], b = keys[e0 + 32];
-      for (int j = 32; j > 0; j >>= 1) bitonic_step(a, b, e0, k, j, lane);
-      keys[e0] = a;
-      keys[e0 + 32] = b;
-    }
-    __syncthreads();
-  }
-}
+constexpr unsigned kAll = kAllLanes;
 
 // keys and selected references in shared memory behind the header, or in
 // ws + img * ws_words when ws is not null
@@ -195,7 +115,7 @@ nms_topk_kernel(const float* __restrict__ boxes,   // [I, N, 6]
   has_nan = __syncthreads_or(has_nan);
 
   // 2. sort once
-  sort_keys(keys, n_pad, tid);
+  sort_keys<kThreads>(keys, n_pad, tid);
   const int n_valid = has_nan ? 0 : s_valid;
 
   // 3. the sorted candidates, a chunk of 32 at a time

@@ -109,12 +109,17 @@ def load() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def constants(source: str) -> Dict[str, int]:
-    """The integer literals a kernel source declares as ``constexpr int kName
-    = value;``: the geometry that the Python launch plans read, so that it is
-    stated once, in the kernel's source. Reads the file; needs no ``nvcc``."""
+    """The integer literals a kernel source, or a header of ``csrc`` it
+    includes, declares as ``constexpr int kName = value;``: the geometry
+    that the Python launch plans read, so that it is stated once, in the
+    kernel's source. Reads the files; needs no ``nvcc``."""
     text = (CSRC / source).read_text()
-    return {m.group(1): int(m.group(2))
-            for m in re.finditer(r"constexpr\s+int\s+(k\w+)\s*=\s*(\d+)\s*;", text)}
+    out: Dict[str, int] = {}
+    for header in re.findall(r'#include\s+"([^"]+)"', text):
+        out.update(constants(header))
+    out.update({m.group(1): int(m.group(2))
+                for m in re.finditer(r"constexpr\s+int\s+(k\w+)\s*=\s*(\d+)\s*;", text)})
+    return out
 
 
 def check(err: int, what: str) -> None:

@@ -3,27 +3,68 @@
 
 :func:`wbc_cluster` launches the CUDA kernel of ``csrc/wbc_cluster.cu`` (one
 block per class) for CUDA tensors and runs :func:`wbc_cluster_plain` for CPU
-tensors. Both take the IoU matrix of all boxes and cluster each class on its
-own; the output of class ``c`` is row ``c`` of ``[C, N]`` arrays, clusters
-in the order they formed, padded with zeros and ``valid = False``. The plain
-version sums in the kernel's order, so the two agree bit for bit.
+tensors. Both take the boxes and compute the IoUs they need themselves, and
+cluster each class on its own; the output of class ``c`` is row ``c`` of
+``[C, N]`` arrays, clusters in the order they formed, padded with zeros and
+``valid = False``.
+
+The kernel sorts each class's boxes once, walks them in that order to find
+the seeds (the greedy NMS keep set) and each box's cluster, and sums each
+cluster's members in increasing index, one float32 add at a time; the plain
+version sums in that order too, so the two agree bit for bit.
+:func:`plan_wbc` sizes the kernel's scratch: in shared memory, or for large
+N in a global workspace.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
 
 from nndetection_tpu_torch.ops import LAUNCHES, _build
+from nndetection_tpu_torch.ops.iou_matrix import iou_matrix_plain
 
-# threads of the kernel's block (one block per class)
-THREADS = 256
-# the scores of the remaining boxes in one block's shared memory, beside the
-# kernel's static arrays
-MAX_BOXES_CUDA = (232448 - 2048) // 4
+# dynamic shared memory one block may opt into on the H100 (227 KB)
+SMEM_MAX = 232_448
 
 _launch_fn = None
+
+
+@dataclass(frozen=True)
+class WbcPlan:
+    """How the kernel runs over ``n`` boxes: the ``n_pad`` keys (a power of
+    two) its sorts run over, the dynamic shared memory in bytes, and
+    ``ws_words``, the 8-byte words of global workspace per class that hold
+    the scratch (0: it sits in shared memory)."""
+
+    n: int
+    n_pad: int
+    smem_bytes: int
+    ws_words: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan_wbc(n: int, smem_bytes: int = SMEM_MAX) -> WbcPlan:
+    """The kernel's launch for ``n`` boxes on a card whose blocks may take
+    ``smem_bytes`` of shared memory. The sorts run over ``n`` padded to a
+    power of two, at least the 64 keys a warp sorts in registers (``kSeg``
+    of ``csrc/box_geometry.cuh``). The scratch, 8 B per padded key and
+    ``kBoxBytes`` per box (``csrc/wbc_cluster.cu``), sits in shared memory
+    behind the kernel's header (``kHeaderWords``) where it fits, else in a
+    global workspace of ``ws_words`` per class, an even number so that each
+    class's slice stays 16-byte aligned."""
+    if n < 1 or n > 1 << 30:
+        raise ValueError(f"wbc_cluster plan needs 1 <= n <= 2**30, got {n}")
+    geo = _build.constants("wbc_cluster.cu")
+    n_pad = max(geo["kSeg"], 1 << (n - 1).bit_length())
+    header = 4 * geo["kHeaderWords"]
+    scratch = 8 * n_pad + geo["kBoxBytes"] * n
+    if header + scratch <= smem_bytes:
+        return WbcPlan(n, n_pad, header + scratch, 0)
+    return WbcPlan(n, n_pad, header, 2 * -(-scratch // 16))
 
 
 def _kernel():
@@ -31,48 +72,28 @@ def _kernel():
     if _launch_fn is None:
         fn = _build.load().wbc_cluster_launch
         fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ious, boxes, scores
-            ctypes.c_void_p, ctypes.c_void_p,                   # weights, n_exp
-            ctypes.c_void_p, ctypes.c_void_p,                   # labels, valid
-            ctypes.c_int, ctypes.c_int,                         # n, classes
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # boxes, scores, weights
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # n_exp, labels, valid
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,           # n, n_pad, classes
             ctypes.c_float, ctypes.c_float, ctypes.c_float,     # iou, score thr, missing w
+            ctypes.c_void_p, ctypes.c_longlong,                 # workspace, its words per class
+            ctypes.c_int,                                       # smem bytes
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # out boxes, scores, valid
-            ctypes.c_void_p,                                    # stream
+            ctypes.c_void_p, ctypes.c_int,                      # stream, device
         ]
         fn.restype = ctypes.c_int
         _launch_fn = fn
     return _launch_fn
 
 
-def _kernel_order_sum(x: torch.Tensor) -> torch.Tensor:
-    """Column sums of ``x [N, K]`` in the kernel's order, so that the float32
-    result has the kernel's bits: thread ``t`` of the 256 adds rows ``t``,
-    ``t + 256``, ... in order, each warp folds its 32 partial sums by the
-    shuffle-down tree (a lane past the warp's end adds its own value), and
-    thread 0 adds the 8 warp sums in order."""
-    n, k = x.shape
-    rows = -(-n // THREADS)
-    x = torch.cat([x, x.new_zeros((rows * THREADS - n, k))]).view(rows, THREADS, k)
-    acc = x.new_zeros((THREADS, k))
-    for r in range(rows):
-        acc = acc + x[r]
-    lanes = acc.view(THREADS // 32, 32, k)
-    for off in (16, 8, 4, 2, 1):
-        lanes = lanes + torch.cat([lanes[:, off:], lanes[:, 32 - off:]], dim=1)
-    total = lanes[0, 0]
-    for w in range(1, THREADS // 32):
-        total = total + lanes[w, 0]
-    return total
-
-
 def wbc_cluster_plain(
-    ious, boxes, scores, weights, n_exp, labels, valid, num_classes,
+    boxes, scores, weights, n_exp, labels, valid, num_classes,
     iou_thresh, score_thresh, missing_weight=1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: a Python loop over the clusters
-    of each class, float32, with the kernel's order of summation (a box
-    outside the cluster adds an exact zero). Arguments and outputs as
-    :func:`wbc_cluster`."""
+    of each class, float32, each seed's IoU row from :func:`iou_matrix_plain`
+    (the kernel's arithmetic), each cluster's members summed in increasing
+    index, one add at a time. Arguments and outputs as :func:`wbc_cluster`."""
     n, dev = scores.shape[0], scores.device
     f32 = dict(dtype=torch.float32, device=dev)
     out_boxes = torch.zeros((num_classes, n, 6), **f32)
@@ -87,14 +108,18 @@ def wbc_cluster_plain(
         count = 0
         while bool(remaining.any()):
             seed = int(torch.argmax(torch.where(remaining, scores, float("-inf"))))
-            cluster = remaining & (ious[seed] > iou_thr)
+            iou = iou_matrix_plain(boxes[seed:seed + 1], boxes)[0]
+            cluster = remaining & (iou > iou_thr)
             remaining = remaining & ~cluster
             remaining[seed] = False  # also when outside its own cluster
-            cm = cluster.float()
-            msw = ious[seed] * weights * cm
-            ms = msw * scores
-            sums = _kernel_order_sum(torch.stack(
-                [cm, n_exp * cm, msw, ms] + [boxes[:, d] * ms for d in range(6)], dim=1))
+            members = torch.nonzero(cluster).flatten()  # increasing index
+            msw = iou[members] * weights[members]
+            ms = msw * scores[members]
+            terms = torch.stack([torch.ones_like(ms), n_exp[members], msw, ms]
+                                + [boxes[members, d] * ms for d in range(6)], dim=1)
+            sums = torch.zeros(10, **f32)
+            for term in terms:
+                sums = sums + term
             n_found, msw_sum, ms_sum = sums[0], sums[2], sums[3]
             n_expected = sums[1] / torch.maximum(n_found, one)
             n_missing = torch.clamp(n_expected - n_found, min=0.0)
@@ -108,12 +133,10 @@ def wbc_cluster_plain(
     return out_boxes, out_scores, out_valid
 
 
-def _wbc_cluster_cuda(ious, boxes, scores, weights, n_exp, labels, valid, num_classes,
+def _wbc_cluster_cuda(boxes, scores, weights, n_exp, labels, valid, num_classes,
                       iou_thresh, score_thresh, missing_weight):
     n = scores.shape[0]
-    if n > MAX_BOXES_CUDA:
-        raise ValueError(f"wbc_cluster holds at most {MAX_BOXES_CUDA} boxes, got {n}")
-    expect = {"ious": (ious, torch.float32, (n, n)), "boxes": (boxes, torch.float32, (n, 6)),
+    expect = {"boxes": (boxes, torch.float32, (n, 6)),
               "scores": (scores, torch.float32, (n,)), "weights": (weights, torch.float32, (n,)),
               "n_exp": (n_exp, torch.float32, (n,)), "labels": (labels, torch.int32, (n,)),
               "valid": (valid, torch.bool, (n,))}
@@ -124,24 +147,28 @@ def _wbc_cluster_cuda(ious, boxes, scores, weights, n_exp, labels, valid, num_cl
             raise ValueError(f"wbc_cluster {name} must be contiguous {shape}, got {tuple(t.shape)}")
         if t.device != scores.device:
             raise ValueError(f"wbc_cluster {name} on {t.device}, scores on {scores.device}")
+    plan = plan_wbc(n)
     dev = scores.device
     out_boxes = torch.empty((num_classes, n, 6), dtype=torch.float32, device=dev)
     out_scores = torch.empty((num_classes, n), dtype=torch.float32, device=dev)
-    out_valid = torch.empty((num_classes, n), dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
-        err = _kernel()(
-            ious.data_ptr(), boxes.data_ptr(), scores.data_ptr(), weights.data_ptr(),
-            n_exp.data_ptr(), labels.data_ptr(), valid.data_ptr(), n, num_classes,
-            float(iou_thresh), float(score_thresh), float(missing_weight),
-            out_boxes.data_ptr(), out_scores.data_ptr(), out_valid.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+    out_valid = torch.empty((num_classes, n), dtype=torch.bool, device=dev)
+    # large N only: the scratch in global memory, one slice per class
+    ws = (torch.empty((num_classes, plan.ws_words), dtype=torch.int64, device=dev)
+          if plan.ws_words else None)
+    err = _kernel()(
+        boxes.data_ptr(), scores.data_ptr(), weights.data_ptr(), n_exp.data_ptr(),
+        labels.data_ptr(), valid.data_ptr(), n, plan.n_pad, num_classes,
+        float(iou_thresh), float(score_thresh), float(missing_weight),
+        ws.data_ptr() if ws is not None else None, plan.ws_words, plan.smem_bytes,
+        out_boxes.data_ptr(), out_scores.data_ptr(), out_valid.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev.index), dev.index,
+    )
     _build.check(err, "wbc_cluster_launch")
     LAUNCHES["wbc_cluster"] += 1
-    return out_boxes, out_scores, out_valid.bool()
+    return out_boxes, out_scores, out_valid
 
 
 def wbc_cluster(
-    ious: torch.Tensor,
     boxes: torch.Tensor,
     scores: torch.Tensor,
     weights: torch.Tensor,
@@ -156,7 +183,6 @@ def wbc_cluster(
     """Greedy weighted box clustering of each class.
 
     Args:
-        ious: ``[N, N]`` float32 IoU of the boxes (:func:`iou_matrix`)
         boxes: ``[N, 6]`` float32
         scores, weights, n_exp: ``[N]`` float32 (weights already multiplied
             by the box volume where the caller wants ``use_area``)
@@ -168,9 +194,9 @@ def wbc_cluster(
     """
     # nothing to cluster needs no launch
     if scores.shape[0] == 0 or num_classes == 0 or scores.device.type == "cpu":
-        return wbc_cluster_plain(ious, boxes, scores, weights, n_exp, labels, valid,
+        return wbc_cluster_plain(boxes, scores, weights, n_exp, labels, valid,
                                  num_classes, iou_thresh, score_thresh, missing_weight)
     if scores.device.type == "cuda":
-        return _wbc_cluster_cuda(ious, boxes, scores, weights, n_exp, labels, valid,
+        return _wbc_cluster_cuda(boxes, scores, weights, n_exp, labels, valid,
                                  num_classes, iou_thresh, score_thresh, missing_weight)
     raise NotImplementedError(f"wbc_cluster has no kernel for {scores.device}")

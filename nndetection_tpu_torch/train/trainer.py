@@ -241,9 +241,10 @@ class Trainer:
     @torch.no_grad()
     def val_epoch(self, state: TrainState, batches: Iterable[Dict[str, Any]], epoch: int,
                   evaluator=None) -> Dict[str, float]:
-        """Mean losses and detections per image over ``batches``."""
-        if evaluator is not None:
-            raise NotImplementedError("the evaluator is not ported yet (ROADMAP.md, queue 1 item 5)")
+        """Mean losses and detections per image over ``batches``. An
+        ``evaluator`` (:class:`nndetection_tpu_torch.evaluator.det.BoxEvaluator`)
+        gets each batch's detections and ground truth as NumPy arrays, and
+        its scores join the result (``monitor_key`` among them)."""
         generator = torch.Generator(device=self.device)
         generator.manual_seed(999 * (epoch + 1))
         state.model.eval()
@@ -258,7 +259,18 @@ class Trainer:
             losses["detections_per_image"] = dets["valid"].float().sum(-1).mean()
             for k, v in losses.items():
                 metrics.setdefault(k, []).append(v)
-        return {f"val_{k}": float(torch.stack(v).mean()) for k, v in metrics.items()}
+            if evaluator is not None:
+                host = {k: v.cpu().numpy() for k, v in dets.items()}
+                evaluator.add_batch(
+                    pred_boxes=host["boxes"], pred_scores=host["scores"],
+                    pred_labels=host["labels"], pred_valid=host["valid"],
+                    gt_boxes=batch["gt_boxes"].cpu().numpy(),
+                    gt_classes=batch["gt_classes"].cpu().numpy(),
+                    gt_mask=batch["gt_mask"].cpu().numpy())
+        out = {f"val_{k}": float(torch.stack(v).mean()) for k, v in metrics.items()}
+        if evaluator is not None:
+            out.update(evaluator.finish_online_evaluation()[0])
+        return out
 
     # ------------------------------------------------------------------
     @torch.no_grad()

@@ -2,9 +2,11 @@
 ``chip_smoke.py``'s sizes: the IoU matrix (#6, ``csrc/iou_matrix.cu``)
 within ``TOL["iou_ulps"]`` float32 ulps, the suppression words (#8,
 ``csrc/suppression_matrix.cu``) and the greedy keep-scan identical, the WBC
-cluster loop (``csrc/wbc_cluster.cu``) with identical clusters and scores
-and boxes within ``TOL["wbc"]``. Imports neither JAX nor the JAX package, so
-that it runs on a machine with the card:
+cluster kernel (``csrc/wbc_cluster.cu``) bit for bit equal to its plain
+version, two calls equal, on the edge cases of ``test_torch_wbc_walk.py``
+with its scratch in shared memory and in the workspace, and the device WBC
+as one launch of it and none of #6. Imports neither JAX nor the JAX
+package, so that it runs on a machine with the card:
 
     python -m pytest -m cuda tests/test_torch_consolidation_cuda.py
 
@@ -14,11 +16,15 @@ import pytest
 import torch
 
 import chip_smoke
+from nndetection_tpu_torch.core.boxes.wbc import batched_wbc
 from nndetection_tpu_torch.ops import LAUNCHES
+from nndetection_tpu_torch.ops import wbc_cluster as owbc
 from nndetection_tpu_torch.ops.iou_matrix import iou_matrix, iou_matrix_plain
 from nndetection_tpu_torch.ops.suppression import (
     nms_keep_scan, nms_keep_scan_plain, suppression_matrix, suppression_matrix_plain)
 from nndetection_tpu_torch.ops.wbc_cluster import wbc_cluster, wbc_cluster_plain
+# by module name: a machine with the card may have another package named `tests`
+from test_torch_wbc_walk import CASES, make_case
 
 
 @pytest.fixture
@@ -74,12 +80,83 @@ def test_wbc_cluster(cuda_device, score_thresh):
     n_exp = torch.from_numpy(rng.randint(1, 9, n).astype(np.float32)).to(**dev)
     labels = torch.from_numpy(rng.randint(0, classes, n).astype(np.int32)).to(**dev)
     valid = torch.from_numpy(rng.rand(n) > 0.05).to(**dev)
-    args = (iou_matrix(b, b), b, scores, weights, n_exp, labels, valid, classes, 0.5, score_thresh)
+    args = (b, scores, weights, n_exp, labels, valid, classes, 0.5, score_thresh)
     n0 = LAUNCHES["wbc_cluster"]
     got, want = wbc_cluster(*args), wbc_cluster_plain(*args)
     torch.cuda.synchronize()
     assert LAUNCHES["wbc_cluster"] == n0 + 1
-    assert torch.equal(got[2], want[2]) and got[2].any()
-    tol = chip_smoke.TOL["wbc"]
-    torch.testing.assert_close(got[1], want[1], **tol)
-    torch.testing.assert_close(got[0], want[0], **tol)
+    assert got[2].any()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def force_route(monkeypatch, route):
+    """The workspace route for any N: a plan with no shared memory to spare."""
+    if route == "workspace":
+        plan = owbc.plan_wbc
+        monkeypatch.setattr(owbc, "plan_wbc", lambda n: plan(n, smem_bytes=0))
+
+
+def check_wbc_on_the_card(device, arrays, classes, iou_thr, score_thr, missing_weight=1.0):
+    """The kernel twice against the plain version on the CPU copies of the
+    same inputs (the plain version gives the same bits on either device):
+    all three outputs bit for bit, one launch per call."""
+    cpu = [torch.from_numpy(a) for a in arrays]
+    dev = [t.to(device) for t in cpu]
+    rest = (classes, iou_thr, score_thr, missing_weight)
+    n0 = LAUNCHES["wbc_cluster"]
+    got, again = wbc_cluster(*dev, *rest), wbc_cluster(*dev, *rest)
+    want = wbc_cluster_plain(*cpu, *rest)
+    torch.cuda.synchronize()
+    assert LAUNCHES["wbc_cluster"] == n0 + 2
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a) and torch.equal(g.cpu(), w)
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["shared", "workspace"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_wbc_cluster_edge_cases(cuda_device, monkeypatch, name, route):
+    force_route(monkeypatch, route)
+    kw, classes, iou_thr, score_thr = CASES[name]
+    check_wbc_on_the_card(cuda_device, make_case(len(name), classes=classes, **kw), classes,
+                          iou_thr, score_thr, 0.7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["shared", "workspace"])
+@pytest.mark.parametrize("n,classes", [(chip_smoke.WBC_SHAPE[0], chip_smoke.WBC_SHAPE[1]),
+                                       (4160, 1), (4161, 1)])
+def test_wbc_cluster_sizes(cuda_device, monkeypatch, n, classes, route):
+    """The table shape, the largest N whose scratch fits in shared memory
+    and the first above it, on either route (the plan's own route for 4161
+    is the workspace)."""
+    force_route(monkeypatch, route)
+    arrays = make_case(n, n, classes, ties=64, invalid=0.05)
+    _, _, valid = check_wbc_on_the_card(cuda_device, arrays, classes, 0.5, 0.0)
+    assert valid.any()
+
+
+@pytest.mark.cuda
+def test_wbc_cluster_plain_on_the_card_equals_the_cpu(cuda_device):
+    arrays = make_case(9, 150, 2, ties=8)
+    cpu = [torch.from_numpy(a) for a in arrays]
+    on_card = wbc_cluster_plain(*(t.to(cuda_device) for t in cpu), 2, 0.3, 0.0)
+    for g, w in zip(on_card, wbc_cluster_plain(*cpu, 2, 0.3, 0.0)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_device_wbc_is_one_launch_and_no_iou_matrix(cuda_device):
+    boxes, scores, weights, n_exp, labels, valid = (
+        torch.from_numpy(a).to(cuda_device) for a in make_case(1, 1000, 2))
+    before = dict(LAUNCHES)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    batched_wbc(boxes, scores, labels, weights, n_exp, valid, iou_thresh=0.4, num_classes=2)
+    torch.cuda.synchronize()
+    assert LAUNCHES["wbc_cluster"] == before.get("wbc_cluster", 0) + 1
+    assert LAUNCHES["iou_matrix"] == before.get("iou_matrix", 0)
+    # outputs and input copies, no N x N float32 matrix (4 MB here)
+    assert torch.cuda.max_memory_allocated(cuda_device) - base < 4 * 1000 * 1000

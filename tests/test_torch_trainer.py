@@ -4,7 +4,9 @@ after the optimizer update) for the ``no_sampler`` and ``hnm`` heads under
 the ``plane_sub:8`` and ``two_pass`` instance-norm schedules, with the same
 flax parameters on both sides and the JAX sampler draws injected; the
 learning-rate schedule, the weight-decay mask, the non-finite guard, SWA,
-checkpoints, resume, and a loss that falls on a fixed batch. The
+checkpoints, resume, a loss that falls on a fixed batch, and the validation
+epoch with a ``BoxEvaluator`` (the JAX ``val_epoch``'s metrics; ``fit``
+then writes ``model_best.ckpt``). The
 ``two_pass`` case of the full step is in ``test_torch_train_step_two_pass.py``."""
 import dataclasses
 import functools
@@ -18,9 +20,11 @@ import torch
 
 from nndetection_tpu.models import RetinaUNet as JaxRetinaUNet
 from nndetection_tpu.models.retina_unet import train_step_loss as j_train_step_loss
+from nndetection_tpu.evaluator.det import BoxEvaluator as JaxBoxEvaluator
 from nndetection_tpu.train import trainer as jtrainer
 from nndetection_tpu_torch import bridge
 from nndetection_tpu_torch.data.gt_prep import prepare_targets
+from nndetection_tpu_torch.evaluator.det import BoxEvaluator
 from nndetection_tpu_torch.models.retina_unet import RetinaUNet
 from nndetection_tpu_torch.train.trainer import (
     MAX_CONSECUTIVE_ERRORS,
@@ -319,9 +323,51 @@ def test_loss_decreases_on_fixed_batch(tmp_path):
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="augmentation"):
         Trainer(torch_cfg(), STEP_TCFG, "cpu", augment_cfg=object())
-    trainer = Trainer(torch_cfg(), STEP_TCFG, "cpu")
-    with pytest.raises(NotImplementedError, match="evaluator"):
-        trainer.val_epoch(trainer.init_state(), [], 0, evaluator=object())
+
+
+# ------------------------------------------------------------- evaluation
+EVAL_TOL = 1e-6
+
+
+def test_val_epoch_evaluator_matches_jax():
+    """``val_epoch`` with a ``BoxEvaluator``, the same flax parameters and
+    the same two prepared batches on both sides: the evaluator's metric
+    keys and values equal the JAX ``Trainer.val_epoch``'s within 1e-6 (its
+    losses are held by the train-step tests; the hard-negative draws
+    differ by generator)."""
+    cfg = jax_cfg(exact_topk=True)
+    tcfg = TrainerConfig(batch_size=2)
+    batches = [jax_targets(0), jax_targets(1)]
+    jt = jtrainer.Trainer(cfg, jax_tcfg(tcfg))
+    params = numpy_params()
+    jstate = jtrainer.TrainState(params=params, opt_state=None, step=None, swa_params=None,
+                                 swa_count=None)
+    want = jt.val_epoch(jstate, iter(batches), 0, evaluator=JaxBoxEvaluator.create(["c"]))
+
+    trainer = Trainer(torch_cfg(), tcfg, "cpu")
+    state = trainer.init_state(params=bridge.state_dict_from_flax(params, RetinaUNet(torch_cfg())))
+    got = trainer.val_epoch(state, batches, 0, evaluator=BoxEvaluator.create(["c"]))
+
+    # the port also reports its detections per image
+    assert set(got) == set(want) | {"val_detections_per_image"}
+    evaluated = [k for k in want if not k.startswith("val_")]
+    assert tcfg.monitor_key in evaluated and len(evaluated) >= 4
+    for k in evaluated:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=EVAL_TOL, err_msg=k)
+    assert any(want[k] > 0 for k in evaluated)
+
+
+def test_fit_with_evaluator_writes_model_best(tmp_path):
+    cfg, tcfg, batch = micro()
+    trainer = Trainer(cfg, tcfg, "cpu", output_dir=tmp_path)
+    logs = []
+    trainer.fit(train_iter_fn=lambda e: [batch], val_iter_fn=lambda e: [batch],
+                evaluator_fn=lambda: BoxEvaluator.create(["c"]),
+                log_fn=lambda e, m: logs.append(m))
+    assert all(np.isfinite(m[tcfg.monitor_key]) for m in logs)
+    best = torch.load(tmp_path / "model_best.ckpt", weights_only=True)
+    scores = [m[tcfg.monitor_key] for m in logs]
+    assert best["extra"] == {"epoch": int(np.argmax(scores)), "score": max(scores)}
 
 
 # ------------------------------------------------------------- the card

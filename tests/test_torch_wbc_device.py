@@ -1,5 +1,5 @@
 """The device formulation of weighted box clustering in the PyTorch port
-(``core/boxes/wbc.py::batched_wbc`` over kernel #6 and ``ops/wbc_cluster``)
+(``core/boxes/wbc.py::batched_wbc``, one call of ``ops/wbc_cluster``)
 against the JAX package's ``batched_wbc`` and the ensembler's
 ``batched_wbc_device``, on the CPU with the plain versions. Both sides are
 float32 and sum in other orders: the clusters, their count and labels are
@@ -18,7 +18,6 @@ from nndetection_tpu.core.boxes.wbc import batched_wbc_np as jax_batched_wbc_np
 from nndetection_tpu_torch.core.boxes.wbc import batched_wbc, wbc
 from nndetection_tpu_torch.inference.ensembler import batched_wbc_device
 from nndetection_tpu_torch.ops import LAUNCHES
-from nndetection_tpu_torch.ops.iou_matrix import iou_matrix_plain
 from nndetection_tpu_torch.ops.wbc_cluster import wbc_cluster, wbc_cluster_plain
 from tests.test_torch_nms import random_boxes
 
@@ -107,10 +106,9 @@ def test_zero_volume_seed_ends_the_loop():
     boxes, scores, labels, weights, n_exp, valid = map(torch.from_numpy, case_inputs(5, 30, 1))
     boxes[0] = 0.0
     scores[0] = 2.0
-    ob, os_, ov = wbc_cluster_plain(iou_matrix_plain(boxes, boxes), boxes, scores, weights,
-                                    n_exp, labels, valid, 1, 0.3, 0.0)
+    ob, os_, ov = wbc_cluster_plain(boxes, scores, weights, n_exp, labels, valid, 1, 0.3, 0.0)
     rb, rs, rw, re, rl, rv = (t[1:] for t in (boxes, scores, weights, n_exp, labels, valid))
-    rest = wbc_cluster_plain(iou_matrix_plain(rb, rb), rb, rs, rw, re, rl, rv, 1, 0.3, 0.0)
+    rest = wbc_cluster_plain(rb, rs, rw, re, rl, rv, 1, 0.3, 0.0)
     k = int(ov.sum())
     assert k == int(rest[2].sum()) > 0
     # the same clusters, summed over one element fewer
@@ -136,10 +134,9 @@ def cuda_device():
 def test_cuda_kernel_matches_plain(cuda_device, n, classes):
     boxes, scores, labels, weights, n_exp, valid = (
         torch.from_numpy(a).to(cuda_device) for a in case_inputs(n, n, classes, pad=5))
-    ious = iou_matrix_plain(boxes, boxes)
     n0 = LAUNCHES["wbc_cluster"]
-    got = wbc_cluster(ious, boxes, scores, weights, n_exp, labels, valid, classes, 0.4, 0.05)
-    want = wbc_cluster_plain(ious, boxes, scores, weights, n_exp, labels, valid, classes, 0.4, 0.05)
+    got = wbc_cluster(boxes, scores, weights, n_exp, labels, valid, classes, 0.4, 0.05)
+    want = wbc_cluster_plain(boxes, scores, weights, n_exp, labels, valid, classes, 0.4, 0.05)
     torch.cuda.synchronize()
     assert LAUNCHES["wbc_cluster"] == n0 + 1
     # the plain version sums in the kernel's order: the same bits
