@@ -130,13 +130,16 @@ CONV_SHAPES = [
 CONV_TRAIN = ((8, 96, 128, 128, 32), 32)
 # consolidation: #6 at the WBC's ensemble_topk (1000) and beyond, #8 and the
 # keep-scan at the model-level NMS's model_topk (1000) and beyond, the cluster
-# kernel at 1000 boxes of 2 classes, then at one class of the first N whose
-# scratch leaves shared memory, of 20000 boxes (where one call's peak memory
-# is reported) and of the previous kernel's cap
+# kernel at 1000 boxes of 2 classes, then at one class of (N, boxes per
+# object): the first N whose scratch leaves shared memory and 20000 boxes
+# (where one call's peak memory is reported) in clumps as at the table shape,
+# where most boxes are clusters of their own, and the previous kernel's cap
+# as an ensemble of 40 streams (5 folds x 8 flips) sees objects, so that the
+# plain cluster loop that checks it runs in seconds
 IOU_SIZES = (1000, 4096)
 SUPPRESSION_SIZES = (1000, 4096)
 WBC_SHAPE = (1000, 2)
-WBC_SIZES = (4161, 20000, 57600)
+WBC_SIZES = ((4161, None), (20000, None), (57600, 40))
 WBC_PEAK_N = 20000
 # the H100 SXM's published peaks (NVIDIA's data sheet, dense): HBM3 bytes/s,
 # bf16 tensor-core and float32 non-tensor flops/s
@@ -811,12 +814,30 @@ def consolidation_kernel_checks(device, iou_sizes=IOU_SIZES, suppression_sizes=S
     return out
 
 
-def wbc_inputs(rng, n, classes):
+def ensemble_boxes(rng, n, per_object):
+    """``n`` seeded boxes ``[n, 6]`` float32 as ``per_object`` streams see
+    ``n // per_object`` objects (half sizes 3-12, spread as densely as the
+    table shape's clumps): each box an object's, its centre and half sizes
+    jittered by up to 10 %."""
+    m = max(n // per_object, 1)
+    extent = 300.0 * max(m / 166, 1) ** (1 / 3)
+    ctr, half = rng.uniform(20, extent - 20, (m, 3)), rng.uniform(3, 12, (m, 3))
+    pick = rng.randint(0, m, n)
+    c = ctr[pick] + rng.uniform(-0.1, 0.1, (n, 3)) * half[pick]
+    h = half[pick] * rng.uniform(0.9, 1.1, (n, 3))
+    lo, hi = c - h, c + h
+    boxes = np.stack([lo[:, 0], lo[:, 1], hi[:, 0], hi[:, 1], lo[:, 2], hi[:, 2]], 1)
+    return boxes.astype(np.float32)
+
+
+def wbc_inputs(rng, n, classes, per_object=None):
     """Seeded inputs of the cluster kernel, CPU tensors: ``n`` boxes in
     clumps over an extent that grows as n^(1/3) from 300 at 1000 boxes (as
-    dense as the table shape), scores, weights, expected counts, labels of
-    ``classes`` classes, all valid."""
-    boxes = clumped_boxes(rng, n, 300.0 * max(n / 1000, 1) ** (1 / 3))
+    dense as the table shape), or as ``per_object`` streams see objects;
+    scores, weights, expected counts, labels of ``classes`` classes, all
+    valid."""
+    boxes = (clumped_boxes(rng, n, 300.0 * max(n / 1000, 1) ** (1 / 3)) if per_object is None
+             else ensemble_boxes(rng, n, per_object))
     scores = rng.rand(n).astype(np.float32)
     weights = (0.5 + rng.rand(n)).astype(np.float32)
     n_exp = rng.randint(1, 9, n).astype(np.float32)
@@ -867,7 +888,7 @@ def wbc_kernel_checks(device, shape=WBC_SHAPE, sizes=WBC_SIZES, real=True, reps=
     """The cluster kernel (``wbc_cluster``) against its plain version on the
     CPU copies of the same inputs, at the table shape, at the consolidate
     phase's real inputs (``real``) and at one class of each of ``sizes``
-    boxes: all three outputs bit for bit, two calls equal, one launch per
+    (boxes, boxes per object): all three outputs bit for bit, two calls equal, one launch per
     call; wall, device and host times; at the table shape also the plain
     version on the card, and ``batched_wbc`` as one launch and none of #6;
     at ``WBC_PEAK_N`` the peak memory of one call. One JSON line holds every
@@ -883,8 +904,9 @@ def wbc_kernel_checks(device, shape=WBC_SHAPE, sizes=WBC_SIZES, real=True, reps=
             cases.append((f"{name} 8-flip case, {args[0].shape[0]} boxes x {args[6]} class",
                           list(args[:6]), tuple(args[6:])))
     rng = np.random.RandomState(11)
-    for n in sizes:
-        cases.append((f"{n} boxes x 1 class", wbc_inputs(rng, n, 1), (1, 0.5, 0.0, 1.0)))
+    for n, per_object in sizes:
+        cases.append((f"{n} boxes x 1 class" + (f", {per_object} per object" if per_object else ""),
+                      wbc_inputs(rng, n, 1, per_object), (1, 0.5, 0.0, 1.0)))
     out, rows = {}, []
     for i, (label, inputs, rest) in enumerate(cases):
         dev_in = [t.to(device) for t in inputs]

@@ -35,6 +35,15 @@ __device__ __forceinline__ bool iou_above(const float* a, const float* b, float 
   return box_iou(a, b) > thr;
 }
 
+// whether boxes a and b overlap along every axis (min - max > 0 on each,
+// which for floats with gradual underflow is min > max); where they do not,
+// box_iou(a, b) is 0 (or NaN for infinite coordinates), above no threshold
+// >= 0
+__device__ __forceinline__ bool boxes_overlap(const float* a, const float* b) {
+  return (fminf(a[2], b[2]) > fmaxf(a[0], b[0])) & (fminf(a[3], b[3]) > fmaxf(a[1], b[1])) &
+         (fminf(a[5], b[5]) > fmaxf(a[4], b[4]));
+}
+
 // ascending order of the key: score descending, then index ascending; -0
 // compares equal to +0, so both take the index order
 __device__ __forceinline__ unsigned long long sort_key(float s, int i) {

@@ -85,11 +85,13 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 32;         // candidates per chunk: one per lane
+constexpr int kUnroll = 4;         // seeds a warp loads and tests at once
 constexpr int kFields = 7;         // a box in registers: x1, y1, x2, y2, z1, z2, volume
 constexpr int kSums = 10;          // n_found, sum n_exp, sum msw, sum ms, six coordinate sums
 constexpr int kHeaderWords = 128;  // shared memory ahead of the scratch: counts, masks
 constexpr int kBoxBytes = 40;      // scratch per box besides the keys: a seed's box, two ints
-static_assert(2 + 2 * kChunk + kWarps <= kHeaderWords, "the header holds the block's counts and masks");
+static_assert(2 * kChunk + kWarps + 2 <= kHeaderWords,
+              "the header holds the block's masks and counts");
 static_assert(kBoxBytes == 32 + 2 * 4, "a seed's box (two float4), an owner, a run end");
 
 __global__ void __launch_bounds__(kThreads)
@@ -105,12 +107,12 @@ wbc_cluster_kernel(const float* __restrict__ boxes,     // [N, 6]
                    float* __restrict__ out_scores,      // [C, N]
                    uint8_t* __restrict__ out_valid) {   // [C, N]
   extern __shared__ __align__(16) unsigned char smem[];
-  int* header = reinterpret_cast<int*>(smem);
-  int& s_rem = header[0];
-  int& s_count = header[1];
-  int* s_prev = header + 2;  // per candidate: the first earlier-chunk seed over the threshold
-  uint32_t* s_mat = reinterpret_cast<uint32_t*>(s_prev + kChunk);  // the chunk's own rows
-  int* s_warp = reinterpret_cast<int*>(s_mat + kChunk);            // emitted per warp
+  uint32_t* s_mat = reinterpret_cast<uint32_t*>(smem);  // the chunk's own rows, 16-byte aligned
+  // per candidate: the first seed of an earlier chunk over the threshold
+  int* s_prev = reinterpret_cast<int*>(s_mat + kChunk);
+  int* s_warp = s_prev + kChunk;                         // emitted per warp
+  int& s_rem = s_warp[kWarps];
+  int& s_count = s_warp[kWarps + 1];
   const int c = blockIdx.x;
   unsigned long long* keys =
       ws ? ws + c * ws_words : reinterpret_cast<unsigned long long*>(smem) + kHeaderWords / 2;
@@ -159,29 +161,56 @@ wbc_cluster_kernel(const float* __restrict__ boxes,     // [N, 6]
   sort_keys<kThreads>(keys, n_pad, tid);
   const int n_rem = s_rem;
 
-  // 2. the walk: owners and seeds, a chunk of 32 sorted candidates at a time
-  int n_seeds = 0;
+  // 2. the walk: owners and seeds, a chunk of 32 sorted candidates at a time;
+  // each lane loads its candidate of the next chunk while this one is tested
+  auto load_candidate = [&](int p, int& ref, float* o) {
+    ref = p < n_rem ? static_cast<int>(static_cast<uint32_t>(keys[p])) : 0;
+#pragma unroll
+    for (int f = 0; f < 6; ++f) o[f] = p < n_rem ? boxes[static_cast<size_t>(ref) * 6 + f] : 0.0f;
+  };
+  int n_seeds = 0, next_ref;
+  float next[6];
+  const bool skip_apart = iou_thr >= 0.0f;  // see boxes_overlap
+  load_candidate(lane, next_ref, next);
   for (int cursor = 0; cursor < n_rem; cursor += kChunk) {
     const int p = cursor + lane;
     const bool vc = p < n_rem;
-    const int ref = vc ? static_cast<int>(static_cast<uint32_t>(keys[p])) : 0;
+    const int ref = next_ref;
     float own[kFields];
-    if (vc) {
-      load_box(ref, own);
-    } else {
 #pragma unroll
-      for (int f = 0; f < kFields; ++f) own[f] = 0.0f;
-    }
+    for (int f = 0; f < 6; ++f) own[f] = next[f];
+    own[6] = volume(own);
+    load_candidate(p + kChunk, next_ref, next);
     // the first seed of an earlier chunk over the threshold: warp w tests
-    // seeds w, w + 16, ... and stops once each of its candidates has a hit
+    // seeds w, w + 16, ..., kUnroll of them at once, and stops once each of
+    // its candidates has a hit. Most seeds overlap no candidate of the chunk
+    // along some axis (IoU 0): for a threshold >= 0 the warp takes the IoU
+    // only of the seeds that overlap one of its candidates.
     int first = INT_MAX;
     bool done = !vc;
-    for (int k = warp; k < n_seeds && !__all_sync(kAllLanes, done); k += kWarps) {
-      float sb[kFields];
-      seed_box(k, sb);
-      if (!done && iou_above(sb, own, iou_thr)) {
-        first = k;
-        done = true;
+    for (int k0 = warp; k0 < n_seeds; k0 += kWarps * kUnroll) {
+      // all loads first (past the last seed, the last one again), so that
+      // they are in flight together
+      float sb[kUnroll][kFields];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) seed_box(min(k0 + u * kWarps, n_seeds - 1), sb[u]);
+      uint32_t near = 0;  // bit u: seed k0 + 16 u may be over the threshold here
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (k0 + u * kWarps < n_seeds && (!skip_apart || boxes_overlap(sb[u], own))) near |= 1u << u;
+      }
+      if (done) near = 0;
+      const uint32_t any_near = __reduce_or_sync(kAllLanes, near);
+      if (any_near) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (((any_near >> u) & 1u) && ((near >> u) & 1u) && !done &&
+              iou_above(sb[u], own, iou_thr)) {
+            first = k0 + u * kWarps;
+            done = true;
+          }
+        }
+        if (__all_sync(kAllLanes, done)) break;
       }
     }
     if (first != INT_MAX) atomicMin(&s_prev[lane], first);
@@ -190,31 +219,46 @@ wbc_cluster_kernel(const float* __restrict__ boxes,     // [N, 6]
       float bi[kFields];
 #pragma unroll
       for (int f = 0; f < kFields; ++f) bi[f] = __shfl_sync(kAllLanes, own[f], i);
-      const uint32_t row = __ballot_sync(kAllLanes, vc && lane > i && iou_above(bi, own, iou_thr));
+      const bool test = vc && lane > i && (!skip_apart || boxes_overlap(bi, own));
+      uint32_t row = 0;
+      if (__any_sync(kAllLanes, test)) {
+        row = __ballot_sync(kAllLanes, test && iou_above(bi, own, iou_thr));
+      }
       if (lane == 0) s_mat[i] = row;
     }
     __syncthreads();
     if (warp == 0) {
       const int prev = s_prev[lane];
       s_prev[lane] = INT_MAX;
-      const uint32_t row = s_mat[lane];
-      // in order: the first candidate left is a seed, and takes its row
-      uint32_t left = __ballot_sync(kAllLanes, vc && prev == INT_MAX);
-      uint32_t sel = 0;
-      while (left) {
-        const int f = __ffs(left) - 1;
-        sel |= 1u << f;
-        left &= ~(1u << f) & ~__shfl_sync(kAllLanes, row, f);
+      // every lane holds the chunk's 32 rows in registers and runs the same
+      // scan: in order, a candidate still left is a seed, and takes its row
+      uint32_t rows[kChunk];
+#pragma unroll
+      for (int i = 0; i < kChunk; i += 4) {
+        const uint4 r = reinterpret_cast<const uint4*>(s_mat)[i / 4];
+        rows[i] = r.x, rows[i + 1] = r.y, rows[i + 2] = r.z, rows[i + 3] = r.w;
+      }
+      uint32_t left = __ballot_sync(kAllLanes, vc && prev == INT_MAX), sel = 0;
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) {
+        if ((left >> i) & 1u) {
+          sel |= 1u << i;
+          left &= ~rows[i];
+        }
       }
       const bool is_seed = (sel >> lane) & 1u;
       const int rank = n_seeds + __popc(sel & ((1u << lane) - 1u));
       int owner = prev;
-      if (is_seed) owner = iou_above(own, own, iou_thr) ? rank : -1;
-      // else the chunk's first seed whose row holds this candidate
-      for (uint32_t rest = sel; rest; rest &= rest - 1u) {
-        const int f = __ffs(rest) - 1;
-        const uint32_t r = __shfl_sync(kAllLanes, row, f);
-        if (owner == INT_MAX && ((r >> lane) & 1u)) owner = n_seeds + __popc(sel & ((1u << f) - 1u));
+      if (is_seed) {
+        owner = iou_above(own, own, iou_thr) ? rank : -1;
+      } else if (owner == INT_MAX) {
+        // the chunk's first seed whose row holds this candidate
+        int f_first = kChunk;
+#pragma unroll
+        for (int f = kChunk - 1; f >= 0; --f) {
+          if ((sel >> f) & (rows[f] >> lane) & 1u) f_first = f;
+        }
+        if (f_first < kChunk) owner = n_seeds + __popc(sel & ((1u << f_first) - 1u));
       }
       if (vc) s_owner[p] = owner;
       if (is_seed) {
@@ -296,7 +340,7 @@ wbc_cluster_kernel(const float* __restrict__ boxes,     // [N, 6]
     }
     __syncthreads();  // s_warp is written again by the next tile
   }
-  for (long long i = static_cast<long long>(count) * 6 + tid; i < 6LL * n; i += kThreads) ob[i] = 0.0f;
+  for (long long i = 6LL * count + tid; i < 6LL * n; i += kThreads) ob[i] = 0.0f;
   for (int i = count + tid; i < n; i += kThreads) {
     os[i] = 0.0f;
     ov[i] = 0;

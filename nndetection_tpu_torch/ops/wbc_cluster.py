@@ -136,19 +136,21 @@ def wbc_cluster_plain(
 def _wbc_cluster_cuda(boxes, scores, weights, n_exp, labels, valid, num_classes,
                       iou_thresh, score_thresh, missing_weight):
     n = scores.shape[0]
-    expect = {"boxes": (boxes, torch.float32, (n, 6)),
-              "scores": (scores, torch.float32, (n,)), "weights": (weights, torch.float32, (n,)),
-              "n_exp": (n_exp, torch.float32, (n,)), "labels": (labels, torch.int32, (n,)),
-              "valid": (valid, torch.bool, (n,))}
-    for name, (t, dtype, shape) in expect.items():
+    dev = scores.device
+    for name, t, dtype, shape in (
+            ("boxes", boxes, torch.float32, (n, 6)), ("scores", scores, torch.float32, (n,)),
+            ("weights", weights, torch.float32, (n,)), ("n_exp", n_exp, torch.float32, (n,)),
+            ("labels", labels, torch.int32, (n,)), ("valid", valid, torch.bool, (n,))):
+        # one test per tensor on the common path: the call's host time counts
+        if (t.dtype == dtype and t.shape == shape and t.is_contiguous()
+                and t.get_device() == dev.index):
+            continue
         if t.dtype != dtype:
             raise TypeError(f"wbc_cluster {name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"wbc_cluster {name} must be contiguous {shape}, got {tuple(t.shape)}")
-        if t.device != scores.device:
-            raise ValueError(f"wbc_cluster {name} on {t.device}, scores on {scores.device}")
+        if t.device != dev:
+            raise ValueError(f"wbc_cluster {name} on {t.device}, scores on {dev}")
+        raise ValueError(f"wbc_cluster {name} must be contiguous {shape}, got {tuple(t.shape)}")
     plan = plan_wbc(n)
-    dev = scores.device
     out_boxes = torch.empty((num_classes, n, 6), dtype=torch.float32, device=dev)
     out_scores = torch.empty((num_classes, n), dtype=torch.float32, device=dev)
     out_valid = torch.empty((num_classes, n), dtype=torch.bool, device=dev)

@@ -102,7 +102,8 @@ def model_wbc(boxes, scores, weights, n_exp, labels, valid, num_classes, iou_thr
         # 3. group: keys (owner, index), sorted; each seed's run
         key2 = np.sort((np.where(owner < 0, NONE, owner.astype(np.uint64)) << np.uint64(32))
                        | order.astype(np.uint64))
-        run_owner, run_idx = (key2 >> np.uint64(32)).astype(np.int64), (key2 & NONE).astype(np.int64)
+        run_owner = (key2 >> np.uint64(32)).astype(np.int64)
+        run_idx = (key2 & NONE).astype(np.int64)
         count = 0
         for k, pos in enumerate(seeds):
             # 4. the sums in increasing index, one float32 add at a time
@@ -174,7 +175,8 @@ CASES = {
     "all_emitted_and_iou_above_one": (dict(n=75), 1, 1.0, float("-inf")),
     "iou_thr_1_5": (dict(n=40), 2, 1.5, float("-inf")),
     "negative_iou_thr": (dict(n=50), 1, -0.1, 0.0),
-    "invalid_nonfinite_foreign": (dict(n=120, invalid=0.2, nonfinite=0.2, foreign=0.2), 3, 0.3, 0.1),
+    "invalid_nonfinite_foreign": (dict(n=120, invalid=0.2, nonfinite=0.2, foreign=0.2),
+                                  3, 0.3, 0.1),
     "three_classes": (dict(n=157, clumps=3), 3, 0.1, 0.05),
     "one_box": (dict(n=1), 1, 0.5, 0.0),
     "one_cluster": (dict(n=77, one_cluster=True), 1, 0.5, 0.0),
