@@ -537,8 +537,12 @@ def norm_kernel_checks(device, stages=LUNA_STAGES, batches=IN_BATCHES, reps=20) 
                     mean2, var2 = in_stats(x4, start, step)
                     if not (torch.equal(mean, mean2) and torch.equal(var, var2)):
                         raise AssertionError(f"{name}: two calls differ")
-                    launched = kernels_launched(lambda: in_stats(x4, start, step))
-                    if len(launched) != 4 or not all("in_stats_kernel" in k for k in launched):
+                    # the profiler's trace now and then lacks a kernel: three tries
+                    for _ in range(3):
+                        launched = kernels_launched(lambda: in_stats(x4, start, step))
+                        if len(launched) == 4 and all("in_stats_kernel" in k for k in launched):
+                            break
+                    else:
                         raise AssertionError(f"{name}: four calls launched {launched}")
                     if dtype != torch.bfloat16:
                         continue
@@ -884,10 +888,10 @@ def consolidation_wbc_inputs(device, shape=(96, 256, 256), patch=(96, 128, 128),
     return out
 
 
-def wbc_kernel_checks(device, shape=WBC_SHAPE, sizes=WBC_SIZES, real=True, reps=20) -> dict:
+def wbc_kernel_checks(device, shape=WBC_SHAPE, sizes=WBC_SIZES, reps=20) -> dict:
     """The cluster kernel (``wbc_cluster``) against its plain version on the
     CPU copies of the same inputs, at the table shape, at the consolidate
-    phase's real inputs (``real``) and at one class of each of ``sizes``
+    phase's real inputs and at one class of each of ``sizes``
     (boxes, boxes per object): all three outputs bit for bit, two calls equal, one launch per
     call; wall, device and host times; at the table shape also the plain
     version on the card, and ``batched_wbc`` as one launch and none of #6;
@@ -899,10 +903,9 @@ def wbc_kernel_checks(device, shape=WBC_SHAPE, sizes=WBC_SIZES, real=True, reps=
 
     cases = [(f"{shape[0]} boxes x {shape[1]} classes", table_wbc_input(shape),
               (shape[1], 0.5, 0.0, 1.0))]
-    if real:
-        for name, args in consolidation_wbc_inputs(device).items():
-            cases.append((f"{name} 8-flip case, {args[0].shape[0]} boxes x {args[6]} class",
-                          list(args[:6]), tuple(args[6:])))
+    for name, args in consolidation_wbc_inputs(device).items():
+        cases.append((f"{name} 8-flip case, {args[0].shape[0]} boxes x {args[6]} class",
+                      list(args[:6]), tuple(args[6:])))
     rng = np.random.RandomState(11)
     for n, per_object in sizes:
         cases.append((f"{n} boxes x 1 class" + (f", {per_object} per object" if per_object else ""),

@@ -163,24 +163,23 @@ wbc_cluster_kernel(const float* __restrict__ boxes,     // [N, 6]
 
   // 2. the walk: owners and seeds, a chunk of 32 sorted candidates at a time;
   // each lane loads its candidate of the next chunk while this one is tested
-  auto load_candidate = [&](int p, int& ref, float* o) {
-    ref = p < n_rem ? static_cast<int>(static_cast<uint32_t>(keys[p])) : 0;
+  auto load_candidate = [&](int p, float* o) {
+    const size_t ref = p < n_rem ? static_cast<uint32_t>(keys[p]) : 0;
 #pragma unroll
-    for (int f = 0; f < 6; ++f) o[f] = p < n_rem ? boxes[static_cast<size_t>(ref) * 6 + f] : 0.0f;
+    for (int f = 0; f < 6; ++f) o[f] = p < n_rem ? boxes[ref * 6 + f] : 0.0f;
   };
-  int n_seeds = 0, next_ref;
+  int n_seeds = 0;
   float next[6];
   const bool skip_apart = iou_thr >= 0.0f;  // see boxes_overlap
-  load_candidate(lane, next_ref, next);
+  load_candidate(lane, next);
   for (int cursor = 0; cursor < n_rem; cursor += kChunk) {
     const int p = cursor + lane;
     const bool vc = p < n_rem;
-    const int ref = next_ref;
     float own[kFields];
 #pragma unroll
     for (int f = 0; f < 6; ++f) own[f] = next[f];
     own[6] = volume(own);
-    load_candidate(p + kChunk, next_ref, next);
+    load_candidate(p + kChunk, next);
     // the first seed of an earlier chunk over the threshold: warp w tests
     // seeds w, w + 16, ..., kUnroll of them at once, and stops once each of
     // its candidates has a hit. Most seeds overlap no candidate of the chunk
@@ -197,7 +196,8 @@ wbc_cluster_kernel(const float* __restrict__ boxes,     // [N, 6]
       uint32_t near = 0;  // bit u: seed k0 + 16 u may be over the threshold here
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        if (k0 + u * kWarps < n_seeds && (!skip_apart || boxes_overlap(sb[u], own))) near |= 1u << u;
+        const bool maybe = !skip_apart || boxes_overlap(sb[u], own);
+        if (k0 + u * kWarps < n_seeds && maybe) near |= 1u << u;
       }
       if (done) near = 0;
       const uint32_t any_near = __reduce_or_sync(kAllLanes, near);
