@@ -7,7 +7,9 @@ Phases, each printing its findings:
 1. device: the card's name and power limit (``nvidia-smi``); fails without
    CUDA, never falls back to the CPU;
 2. build: compiles the CUDA kernels from ``nndetection_tpu_torch/csrc`` into
-   the git-ignored ``nndetection_tpu_torch/_build`` and loads them;
+   the git-ignored ``nndetection_tpu_torch/_build`` and loads them, and
+   beside them the host library (``csrc/nndet_host.cpp``: the model-level
+   NMS, the host WBC and the COCO matching) with the host C++ compiler;
 3. kernels: every kernel of the serving, train and consolidation paths
    against its plain PyTorch version on the card, at the shapes of those
    paths (instance-norm statistics (#1) at every LUNA stage shape at batch 2
@@ -55,7 +57,9 @@ Phases, each printing its findings:
    and with ``BoxEnsemblerWBC``, its whole-case WBC on the card (the cluster
    kernel; no path launches #6), then the same ensembler state consolidated again on the
    card, with the device formulation on the CPU (the same detections, same
-   bits) and on the host in NumPy (float64), each timed;
+   bits) and on the host (the host library, float64), each timed; the
+   model-level NMS of the selective ensembler's streams in the host library
+   beside the NumPy loop on the same candidates (the same keep lists);
 9. NMS mask: ``batched_nms_mask`` (#8 and the keep-scan) on the card over
    each stream's model-level candidates of that case, equal to the CPU
    plain version, and how many boxes it keeps otherwise than the host
@@ -63,8 +67,21 @@ Phases, each printing its findings:
 10. sweep: ensembler states of three seeded LUNA-plan cases (patch
    96x128x128, 8 flips) with GT made from the seed; ``BoxSweeper`` on the
    card, then with the device formulation on the CPU (identical best
-   parameters, scores within 1e-6) and on the host path, each timed;
-11. serve fused and train fused: phases 6 (the 140x320x320 case) and 7 under
+   parameters, scores within 1e-6) and on the host path, each timed, the
+   matching in the host library;
+11. deploy: checkpoints on disk to evaluation. The tiny float32 model: two
+   folds saved by ``Trainer.save_checkpoint``, loaded by ``load_all_models``,
+   two seeded cases (one padded, one restored) through ``predict_dir`` with
+   TTA, segmentation, restore and ensembler states on the card and on the
+   CPU: boxes paired within the stated tolerance, seg maps equal but for
+   near-ties (counted), and ``evaluate_box_dir``, ``evaluate_case_dir`` and
+   ``evaluate_seg_dir`` equal within 1e-6 on both directories as sets of
+   detections (scores rounded to 1e-4, one order). Then the LUNA plan at full width,
+   two seeded folds from disk, one 96x256x256 case with 8 flips,
+   segmentation and ``BoxEnsemblerSelective``, first and warm: seconds, the
+   consolidation of its saved state, peak memory; #1, #2, #7 and the cluster
+   kernel must launch and the model-level NMS run in the host library;
+12. serve fused and train fused: phases 6 (the 140x320x320 case) and 7 under
    ``NNDET_CONV_FUSED=1``, restored after; #5 must launch 7 times per model
    forward (both convs of stage 0, the second of stages 1-5), so 14 times
    per train step with remat, beside the other kernels.
@@ -83,7 +100,8 @@ and fused (kernel time by name; the tables into ``DIR/train_profile.txt`` and
 runs only the phases named (of ``build``, ``kernels``, ``conv``, ``norm``,
 ``nms`` and ``wbc`` (#5's, #1's, #7's and the cluster kernel's checks
 alone), ``reference``, ``forward``, ``serve``, ``consolidate``,
-``nms_mask``, ``sweep``, ``train``, ``serve_fused``, ``train_fused``); the
+``nms_mask``, ``sweep``, ``deploy``, ``train``, ``serve_fused``,
+``train_fused``); the
 device phase always runs, the ``kernels`` JSON line only when every phase
 it reads ran. With no argument every phase but ``conv``, ``norm``, ``nms``
 and ``wbc`` runs (``kernels`` holds them).
@@ -181,6 +199,10 @@ TOL = {
     # loop follows the kernel's); the bits agree, this is the stated bound
     # (the kernel alone is held to its plain version bit for bit)
     "wbc": dict(rtol=1e-5, atol=1e-6),
+    # the tiny float32 model's whole case, card (cuDNN, TF32 off, the WBC on
+    # the card in float32) against the CPU (the host WBC in float64), as the
+    # reference phase holds it
+    "case_f32": dict(rtol=0.0, atol=1e-3),
 }
 KERNELS = {
     "in_stats": dict(route="cuda", source="nndetection_tpu_torch/csrc/instance_norm_stats.cu",
@@ -385,14 +407,28 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from nndetection_tpu_torch.ops import _build
+    """The kernel library (``nvcc``, one process per source) and the host
+    library (the host C++ compiler) built at once, from the checkout's
+    sources, never from a leftover."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    lib = _build.library_path()
-    if lib.exists():  # build from the checkout's sources, never a leftover
-        lib.unlink()
+    from nndetection_tpu_torch.ops import _build, native
+
+    lib, host = _build.library_path(), _build.host_library_path()
+    for path in (lib, host):
+        if path.exists():
+            path.unlink()
     t0 = time.perf_counter()
-    _build.load()
-    log(f"[build] nvcc {time.perf_counter() - t0:.2f} s -> {lib.relative_to(_build.CSRC.parents[1])}")
+    with ThreadPoolExecutor(1) as pool:
+        host_build = pool.submit(lambda: (native.available(), time.perf_counter() - t0))
+        _build.load()
+        t_nvcc = time.perf_counter() - t0
+        loaded, t_host = host_build.result()
+    if not loaded:
+        raise RuntimeError("no host C++ compiler: the host library did not build")
+    root = _build.CSRC.parents[1]
+    log(f"[build] nvcc {t_nvcc:.2f} s -> {lib.relative_to(root)}; host library "
+        f"({_build.host_compiler()}) {t_host:.2f} s -> {host.relative_to(root)}")
     for line in _build.BUILD_LOG.read_text().splitlines():
         if "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
@@ -1348,17 +1384,53 @@ def paired_max_err(label, got, want, rtol, atol) -> float:
     return float(diff[np.arange(len(a)), nearest].max()) if len(a) else 0.0
 
 
+def model_nms_times(ens):
+    """The model-level NMS over every stream's candidates, ranked by score x
+    weight as the weighted NMS ranks them: seconds through the host library
+    (``batched_nms_np``) and through the NumPy loop (``nms_np_plain`` on the
+    same class-offset boxes), which must keep the same boxes."""
+    from nndetection_tpu_torch.core.boxes.ops_np import batched_nms_np, nms_np_plain
+
+    thr = ens.parameters["model_iou"]
+    n_boxes, t_native, t_plain = 0, 0.0, 0.0
+    for name in ens.model_results:
+        boxes, probs, labels, weights = ens.model_candidates(name)
+        if not len(boxes):
+            continue
+        ranked = probs * weights
+        t0 = time.perf_counter()
+        keep = batched_nms_np(boxes, ranked, labels, thr)
+        t1 = time.perf_counter()
+        shifted = boxes.astype(np.float64)
+        offsets = labels.astype(np.float64) * (boxes.max() + 1)
+        shifted[:, [0, 1, 4]] += offsets[:, None]
+        shifted[:, [2, 3, 5]] += offsets[:, None]
+        want = nms_np_plain(shifted, ranked, thr)
+        t2 = time.perf_counter()
+        if not np.array_equal(keep, want):
+            raise AssertionError(f"model-level NMS of stream {name}: the host library keeps "
+                                 f"{len(keep)} boxes, the NumPy loop {len(want)}")
+        n_boxes += len(boxes)
+        t_native += t1 - t0
+        t_plain += t2 - t1
+    return n_boxes, t_native, t_plain
+
+
 def phase_consolidate(device, shape=(96, 256, 256), patch=(96, 128, 128), tta=True,
                       names=("BoxEnsemblerSelective", "BoxEnsemblerWBC")):
     """The 8-flip case through ``predict_case`` with each ensembler (first
     call, then a warm one, timed), its WBC on the card; then the same
     ensembler state consolidated on the card, with the device formulation on
-    the CPU and on the host in NumPy. Returns the launches of the warm calls
-    and the ensemblers."""
+    the CPU and on the host (the host library, float64). The model-level NMS
+    runs in the host library; it is timed again beside the NumPy loop on the
+    same candidates. Returns the launches of the warm calls and the
+    ensemblers."""
     from nndetection_tpu_torch.inference.predictor import ModelBundle, Predictor
     from nndetection_tpu_torch.models.retina_unet import RetinaUNet
-    from nndetection_tpu_torch.ops import LAUNCHES
+    from nndetection_tpu_torch.ops import LAUNCHES, native
 
+    if not native.available():
+        raise AssertionError("consolidate: the host library did not load")
     cfg = luna_cfg(patch)
     params = RetinaUNet(cfg, torch.Generator().manual_seed(0)).state_dict()
     case = np.random.RandomState(5).standard_normal((1, *shape)).astype(np.float32)
@@ -1370,10 +1442,12 @@ def phase_consolidate(device, shape=(96, 256, 256), patch=(96, 128, 128), tta=Tr
         predictor.predict_case(case)
         torch.cuda.synchronize()
         LAUNCHES.clear()
+        native.NATIVE_CALLS.clear()
         t0 = time.perf_counter()
         res = predictor.predict_case(case)
         torch.cuda.synchronize()
         case_s = time.perf_counter() - t0
+        native_calls = dict(native.NATIVE_CALLS)
         for k, v in LAUNCHES.items():
             launches[k] = launches.get(k, 0) + v
         ens = ensemblers[name] = res["ensembler"]
@@ -1389,10 +1463,16 @@ def phase_consolidate(device, shape=(96, 256, 256), patch=(96, 128, 128), tta=Tr
                                  f"{len(dev_cpu['pred_scores'])} on the CPU")
         err = paired_max_err(f"consolidate {name}", card, dev_cpu, **TOL["wbc"])
         log(f"[consolidate] {name}, case {shape} tta={tta}: warm case {case_s:.4f} s, "
-            f"{n} detections; consolidation on the card {t_card:.4f} s "
-            f"({t_card_ens:.4f} s again with the model-level NMS memoized), device "
-            f"formulation on the CPU {t_cpu:.4f} s (card vs CPU max abs err {err:.2e}), host "
-            f"NumPy {t_host:.4f} s ({len(host['pred_scores'])} detections, float64)")
+            f"{n} detections, host library calls {native_calls}; consolidation on the card "
+            f"{t_card:.4f} s ({t_card_ens:.4f} s again with the model-level NMS memoized), "
+            f"device formulation on the CPU {t_cpu:.4f} s (card vs CPU max abs err {err:.2e}), "
+            f"host (host library, float64) {t_host:.4f} s ({len(host['pred_scores'])} "
+            "detections)")
+        if name == "BoxEnsemblerSelective":
+            n_boxes, t_native, t_plain = model_nms_times(ens)
+            log(f"[consolidate] {name}: model-level NMS over {len(ens.model_results)} streams, "
+                f"{n_boxes} candidates: host library {t_native:.4f} s, NumPy loop "
+                f"(nms_np_plain) {t_plain:.4f} s, the same keep lists")
     missing = [k for k in CONSOLIDATE_KERNELS if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"consolidate: kernels never launched on the main path: {missing}")
@@ -1471,6 +1551,7 @@ def phase_sweep(device, n_cases=3, shape=(96, 128, 128), patch=(96, 128, 128), t
     from nndetection_tpu_torch.inference.sweeper import BoxSweeper
     from nndetection_tpu_torch.models.retina_unet import RetinaUNet
     from nndetection_tpu_torch.ops import LAUNCHES
+    from nndetection_tpu_torch.ops.native import NATIVE_CALLS
 
     cfg = luna_cfg(patch)
     params = RetinaUNet(cfg, torch.Generator().manual_seed(0)).state_dict()
@@ -1492,7 +1573,7 @@ def phase_sweep(device, n_cases=3, shape=(96, 128, 128), patch=(96, 128, 128), t
             np.savez(states / f"case_{i}_boxes_gt.npz", boxes=gt.astype(np.float32),
                      classes=np.zeros(len(gt), np.int64))
         for label, dev, device_wbc in (("card", device, "auto"), ("CPU device formulation",
-                                       torch.device("cpu"), True), ("host NumPy", torch.device("cpu"), False)):
+                                       torch.device("cpu"), True), ("host", torch.device("cpu"), False)):
             ensembler.DEVICE_WBC = device_wbc
             try:
                 sweeper = BoxSweeper(["nodule"], states, states, save_dir=states / label.split()[0],
@@ -1501,16 +1582,17 @@ def phase_sweep(device, n_cases=3, shape=(96, 128, 128), patch=(96, 128, 128), t
                 evaluate = sweeper._evaluate_params
                 sweeper._evaluate_params = lambda p: trials.append(p) or evaluate(p)
                 LAUNCHES.clear()
+                NATIVE_CALLS.clear()
                 t0 = time.perf_counter()
                 plan = sweeper.run_postprocessing_sweep()
                 seconds = time.perf_counter() - t0
             finally:
                 ensembler.DEVICE_WBC = "auto"
             runs[label] = dict(plan=plan, seconds=seconds, trials=len(trials),
-                               launches=dict(LAUNCHES))
+                               launches=dict(LAUNCHES), native=dict(NATIVE_CALLS))
             if not (states / label.split()[0] / "sweep_results.json").exists():
                 raise AssertionError(f"sweep {label}: no sweep_results.json")
-    card, cpu, host = runs["card"], runs["CPU device formulation"], runs["host NumPy"]
+    card, cpu, host = runs["card"], runs["CPU device formulation"], runs["host"]
     missing = [k for k in CONSOLIDATE_KERNELS if card["launches"].get(k, 0) == 0]
     if missing:
         raise AssertionError(f"sweep: kernels never launched on the card: {missing}")
@@ -1525,11 +1607,301 @@ def phase_sweep(device, n_cases=3, shape=(96, 128, 128), patch=(96, 128, 128), t
     for label, r in runs.items():
         log(f"[sweep] {label}: {r['seconds']:.3f} s per sweep, {r['trials']} trials x {n_cases} "
             f"cases, {r['seconds'] / r['trials']:.4f} s per trial, best score "
-            f"{r['plan']['score']:.6f}" + (f", launches {r['launches']}" if r["launches"] else ""))
+            f"{r['plan']['score']:.6f}, host library calls {r['native']}"
+            + (f", launches {r['launches']}" if r["launches"] else ""))
     log(f"[sweep] best parameters identical on the card and the CPU; changed from the defaults: "
-        f"{changed}; host NumPy path {'agrees' if host['plan'] == card['plan'] else 'differs'} "
+        f"{changed}; host path {'agrees' if host['plan'] == card['plan'] else 'differs'} "
         f"(score {host['plan']['score']:.6f})")
     return card["launches"]
+
+
+# seg maps, card vs CPU: a voxel whose two highest averaged class
+# probabilities lie closer than this may take either class, and at most this
+# share of a case's voxels may differ
+SEG_NEAR_TIE = 1e-4
+SEG_MAX_FLIP_SHARE = 1e-3
+# directory scores of the same files, card vs CPU
+DEPLOY_EVAL_TOL = 1e-6
+
+
+@contextlib.contextmanager
+def recording_seg_ensemblers():
+    """The ``SegmentationEnsembler`` of every ``predict_case`` inside, in
+    order."""
+    import nndetection_tpu_torch.inference.predictor as predictor_mod
+
+    made, base = [], predictor_mod.SegmentationEnsembler
+
+    class Recording(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    predictor_mod.SegmentationEnsembler = Recording
+    try:
+        yield made
+    finally:
+        predictor_mod.SegmentationEnsembler = base
+
+
+def save_folds(model_dir, cfg, seeds, scale=None):
+    """One port checkpoint per seed through ``Trainer.save_checkpoint``, as
+    ``fold{k}/model_last.ckpt`` (the classifier spread by ``scale``)."""
+    from nndetection_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    trainer = Trainer(cfg, TrainerConfig(batch_size=2), "cpu")
+    for k, seed in enumerate(seeds):
+        state = trainer.init_state(rng_seed=seed)
+        if scale is not None:
+            spread(state.model, scale)
+        trainer.save_checkpoint(state, model_dir / f"fold{k}" / "model_last.ckpt")
+
+
+def write_deploy_cases(image_dir, rng) -> dict:
+    """Two preprocessed cases of the tiny model (image channel, then the
+    seg channel that prediction drops): one smaller than the 32^3 patch
+    (padded), one with the properties that ``restore`` reads. Returns each
+    case's restored shape."""
+    import pickle
+
+    image_dir.mkdir(parents=True)
+    np.savez(image_dir / "case_a.npz", data=rng.standard_normal((2, 20, 40, 28)).astype(np.float32))
+    np.savez(image_dir / "case_b.npz", data=rng.standard_normal((2, 40, 36, 44)).astype(np.float32))
+    props = {"transpose_forward": [2, 0, 1], "original_spacing": np.asarray([0.7, 0.8, 2.5]),
+             "spacing_after_resampling": np.asarray([1.0, 1.2, 0.9]),
+             "crop_bbox": [[3, 31], [5, 45], [0, 40]], "shape_after_crop": (28, 40, 40),
+             "shape_before_crop": (34, 50, 46)}
+    with open(image_dir / "case_b.pkl", "wb") as f:
+        pickle.dump(props, f)
+    return {"case_a": (20, 40, 28), "case_b": props["shape_before_crop"]}
+
+
+def read_prediction(out_dir, cid):
+    import pickle
+
+    with open(out_dir / f"{cid}_boxes.pkl", "rb") as f:
+        boxes = pickle.load(f)
+    with np.load(out_dir / f"{cid}_seg.npz") as f:
+        return boxes, f["seg"]
+
+
+def seg_flips(card, cpu) -> tuple:
+    """Voxels where two ``SegmentationEnsembler`` of one case take other
+    classes, and how many of those are not near-ties of the CPU's averaged
+    probabilities."""
+    norm = cpu.accum / torch.clamp(cpu.weight[None], min=1e-8)
+    top2 = torch.topk(norm, 2, dim=0).values
+    near = (top2[0] - top2[1]).numpy() < SEG_NEAR_TIE
+    differ = card.get_case_result() != cpu.get_case_result()
+    return int(differ.sum()), int((differ & ~near).sum())
+
+
+def canonical_copy(src, dst):
+    """``src``'s predictions as sets: each ``{case}_boxes.pkl`` with its
+    scores rounded to 1e-4 and its rows in one order (score, then box), the
+    seg maps as they are. AP ranks detections by score, and with 16 streams
+    of saturated scores the cluster scores fall on multiples of 1/16: a
+    float32 ulp between the card's forward and the CPU's splits such a tie
+    group or reorders it, and moves AP by tenths. Equal sets of detections
+    must score equally."""
+    import pickle
+    import shutil
+
+    from nndetection_tpu_torch.utils.io import save_pickle
+
+    dst.mkdir()
+    for p in src.glob("*_boxes.pkl"):
+        with open(p, "rb") as f:
+            r = pickle.load(f)
+        scores = np.round(np.asarray(r["pred_scores"], np.float64), 4)
+        boxes = np.asarray(r["pred_boxes"], np.float64)
+        order = np.lexsort((*np.round(boxes, 2).T[::-1], -scores))
+        save_pickle({"pred_boxes": boxes[order], "pred_scores": scores[order],
+                     "pred_labels": np.asarray(r["pred_labels"])[order]}, dst / p.name)
+    for p in src.glob("*_seg.npz"):
+        shutil.copy(p, dst / p.name)
+    return dst
+
+
+def same_scores(label, got, want, tol=DEPLOY_EVAL_TOL) -> float:
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: other metric keys on the card and the CPU")
+    worst = 0.0
+    for k in got:
+        a, b = np.asarray(got[k], np.float64), np.asarray(want[k], np.float64)
+        if not (np.array_equal(np.isnan(a), np.isnan(b)) and
+                np.all(np.abs(a - b)[~np.isnan(b)] <= tol)):
+            raise AssertionError(f"{label} {k}: {a} on the card, {b} on the CPU")
+        worst = max([worst, *np.abs(a - b)[~np.isnan(b)].ravel().tolist()])
+    return worst
+
+
+def phase_deploy_tiny(device) -> None:
+    """Checkpoints on disk to evaluation with the tiny float32 model, on the
+    card and on the CPU (TF32 off): two folds saved by the trainer, loaded by
+    ``load_all_models``, ``predict_dir`` with TTA, segmentation, restore and
+    the ensembler states, then the three directory evaluations."""
+    import tempfile
+    from pathlib import Path
+
+    from nndetection_tpu_torch.evaluator.registry import (
+        evaluate_box_dir, evaluate_case_dir, evaluate_seg_dir)
+    from nndetection_tpu_torch.inference.loading import load_all_models
+    from nndetection_tpu_torch.pipeline import predict_dir
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(11)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        shapes = write_deploy_cases(tmp / "images", rng)
+        save_folds(tmp / "models", tiny_cfg(), seeds=(0, 1), scale=100.0)
+        bundles = load_all_models(tmp / "models")
+        if [b.name for b in bundles] != ["fold0", "fold1"]:
+            raise AssertionError(f"deploy: loaded {[b.name for b in bundles]}")
+        ens, seconds = {}, {}
+        for label, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            with recording_seg_ensemblers() as made:
+                t0 = time.perf_counter()
+                predict_dir(bundles, tmp / "images", tmp / label, tta=True, predict_seg=True,
+                            restore=True, save_state=True, device=dev)
+                seconds[label] = time.perf_counter() - t0
+            ens[label] = made
+        names = {label: sorted(p.name for p in (tmp / label).iterdir()) for label in ens}
+        if names["card"] != names["cpu"] or len(names["card"]) != 3 * len(shapes):
+            raise AssertionError(f"deploy: files {names}")
+        box_err, flips = 0.0, []
+        gt = tmp / "gt"
+        gt.mkdir()
+        for cid, shape in shapes.items():
+            (got, got_seg), (want, want_seg) = (read_prediction(tmp / label, cid)
+                                                for label in ("card", "cpu"))
+            for r in (got, want):
+                if not len(r["pred_scores"]) or not np.isfinite(r["pred_boxes"]).all():
+                    raise AssertionError(f"deploy {cid}: no detections, or non-finite ones")
+            box_err = max(box_err, paired_max_err(f"deploy {cid}", got, want, **TOL["case_f32"]))
+            if got_seg.shape != tuple(shape) or want_seg.shape != tuple(shape):
+                raise AssertionError(f"deploy {cid}: seg {got_seg.shape} / {want_seg.shape}, "
+                                     f"want {shape}")
+            share = float((got_seg != want_seg).mean())
+            if share > SEG_MAX_FLIP_SHARE:
+                raise AssertionError(f"deploy {cid}: {share:.2e} of the seg voxels differ")
+            flips.append(int((got_seg != want_seg).sum()))
+            # ground truth: jittered top detections in the first case, none
+            # in the second; the CPU's map with 10 % of the voxels flipped
+            pick = want["pred_boxes"][:3] if cid == "case_a" else np.zeros((0, 6))
+            np.savez(gt / f"{cid}_boxes_gt.npz",
+                     boxes=(pick + rng.uniform(-2, 2, pick.shape)).astype(np.float32),
+                     classes=np.zeros(len(pick), np.int64))
+            noise = rng.rand(*want_seg.shape) < 0.1
+            np.savez_compressed(gt / f"{cid}_seg_gt.npz",
+                                seg=np.where(noise, 1 - want_seg, want_seg).astype(np.int16))
+        ens_flips = [seg_flips(c, p) for c, p in zip(ens["card"], ens["cpu"])]
+        if len(ens_flips) != len(shapes) or any(bad for _, bad in ens_flips):
+            raise AssertionError(f"deploy: seg voxels that differ away from a near-tie {ens_flips}")
+        scores = {}
+        for label in ("card", "cpu"):
+            out = canonical_copy(tmp / label, tmp / f"{label}_canonical")
+            scores[label] = {
+                "box": evaluate_box_dir(out, gt, ["c"], save_dir=out / "eval")[0],
+                "case": evaluate_case_dir(out, gt, ["c"], save_dir=out / "eval"),
+                "seg": evaluate_seg_dir(out, gt, save_dir=out / "eval")}
+        eval_err = max(same_scores(f"deploy {k}", scores["card"][k], scores["cpu"][k])
+                       for k in scores["card"])
+    s = scores["card"]
+    log(f"[deploy] tiny float32, 2 folds from disk x 8 flips, cases {list(shapes.values())} "
+        f"(restored shapes): predict_dir {seconds['card']:.3f} s on the card, "
+        f"{seconds['cpu']:.3f} s on the CPU; boxes card vs CPU max abs err {box_err:.2e}; seg "
+        f"voxels that differ {flips} (in the ensemblers {[n for n, _ in ens_flips]}, all "
+        f"near-ties < {SEG_NEAR_TIE}); scores equal within {eval_err:.1e}: "
+        f"mAP {s['box']['mAP_IoU_0.10_0.50_0.05_MaxDet_100']:.4f}, case AUROC "
+        f"{s['case']['case_auroc']:.4f}, seg dice {s['seg']['seg_dice_fg_mean']:.4f}")
+
+
+def phase_deploy_luna(device, shape=(96, 256, 256), folds=2) -> dict:
+    """The LUNA plan at full width from disk: ``folds`` seeded random models
+    saved by the trainer and loaded by ``load_all_models``, one case through
+    ``predict_dir`` with 8 flips, segmentation and ``BoxEnsemblerSelective``,
+    twice (first, warm). Returns the launches of both calls."""
+    import tempfile
+    from pathlib import Path
+
+    from nndetection_tpu_torch.inference.ensembler import BoxEnsemblerSelective
+    from nndetection_tpu_torch.inference.loading import load_all_models
+    from nndetection_tpu_torch.inference.predictor import Predictor
+    from nndetection_tpu_torch.ops import LAUNCHES
+    from nndetection_tpu_torch.ops.native import NATIVE_CALLS
+    from nndetection_tpu_torch.pipeline import predict_dir
+
+    cfg = luna_cfg()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        save_folds(tmp / "models", cfg, seeds=range(folds))
+        t0 = time.perf_counter()
+        bundles = load_all_models(tmp / "models")
+        t_load = time.perf_counter() - t0
+        (tmp / "images").mkdir()
+        case = np.random.RandomState(12).standard_normal((2, *shape)).astype(np.float32)
+        np.savez(tmp / "images" / "luna_0.npz", data=case)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        NATIVE_CALLS.clear()
+        seconds, case_seconds = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            predict_dir(bundles, tmp / "images", tmp / "out", tta=True, predict_seg=True,
+                        save_state=True, ensembler="BoxEnsemblerSelective", device=device)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            boxes, seg = read_prediction(tmp / "out", "luna_0")
+            case_seconds.append(boxes["prediction_time_s"])
+        launches, native_calls = dict(LAUNCHES), dict(NATIVE_CALLS)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        missing = [k for k in SERVE_KERNELS if launches.get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f"deploy: kernels never launched on the main path: {missing}")
+        if native_calls.get("nms_3d", 0) == 0:
+            raise AssertionError(f"deploy: the model-level NMS never ran in the host library "
+                                 f"({native_calls})")
+        _check_detections("deploy luna", boxes, shape)
+        if seg.shape != shape or seg.dtype != np.int16 or not set(np.unique(seg)) <= {0, 1}:
+            raise AssertionError(f"deploy luna: seg {seg.shape} {seg.dtype} {np.unique(seg)}")
+        ens = BoxEnsemblerSelective.from_checkpoint(tmp / "out" / "luna_0_boxes_state.pkl",
+                                                    device=device)
+        again, t_cons = _consolidate(ens, device, "auto")
+        if len(again["pred_scores"]) != len(boxes["pred_scores"]):
+            raise AssertionError("deploy luna: the saved state consolidates to other detections")
+        # where a warm case goes: the predictor's set-up (models to the card),
+        # predict_case without and with the segmentation; the rest of
+        # predict_dir is file IO on the host
+        split = {}
+        for seg_on in (False, True):
+            t0 = time.perf_counter()
+            predictor = Predictor(bundles, tta=True, predict_seg=seg_on, device=device)
+            torch.cuda.synchronize()
+            split["set-up"] = time.perf_counter() - t0
+            predictor.predict_case(case[:-1])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            predictor.predict_case(case[:-1])
+            torch.cuda.synchronize()
+            split["seg" if seg_on else "boxes only"] = time.perf_counter() - t0
+    log(f"[deploy] LUNA plan {folds} folds from disk (load {t_load:.2f} s), case {shape}, 8 flips, "
+        f"seg, BoxEnsemblerSelective: predict_dir first {seconds[0]:.4f} s, warm {seconds[1]:.4f} s "
+        f"(predict_case {case_seconds[0]:.4f} / {case_seconds[1]:.4f} s); consolidation of the "
+        f"saved state on the card {t_cons:.4f} s; {len(boxes['pred_scores'])} detections, seg "
+        f"foreground {float((seg > 0).mean()):.4f}; peak device memory {peak:.2f} GiB; warm "
+        f"predict_case without the segmentation {split['boxes only']:.4f} s, with it "
+        f"{split['seg']:.4f} s, Predictor set-up {split['set-up']:.4f} s")
+    log(f"[deploy] kernel launches during the two calls: {launches}; host library calls "
+        f"{native_calls}")
+    return launches
+
+
+def phase_deploy(device) -> dict:
+    phase_deploy_tiny(device)
+    return phase_deploy_luna(device)
 
 
 def phase_serve_fused(device, cases=(((140, 320, 320), False),), patch=(96, 128, 128)):
@@ -1641,7 +2013,7 @@ def profile_train_step(trainer, state, targets, out_dir, label="train") -> None:
 
 
 PHASES = ("build", "kernels", "conv", "norm", "nms", "wbc", "reference", "forward", "serve",
-          "consolidate", "nms_mask", "sweep", "train", "serve_fused", "train_fused")
+          "consolidate", "nms_mask", "sweep", "deploy", "train", "serve_fused", "train_fused")
 # the checks of one kernel alone, which ``kernels`` includes
 KERNEL_PHASES = ("conv", "norm", "nms", "wbc")
 
@@ -1702,6 +2074,8 @@ def main() -> None:
         launches["nms mask"] = phase_nms_mask(device, ensemblers["BoxEnsemblerSelective"])
     if "sweep" in phases:
         launches["sweep"] = phase_sweep(device)
+    if "deploy" in phases:
+        launches["deploy"] = phase_deploy(device)
     if "train" in phases:
         train = phase_train(device, profile_dir=profile_dir)
         launches["train"] = train["launches"]

@@ -1,4 +1,4 @@
-"""NumPy box ops for host-side code (copy of the NumPy path of
+"""NumPy box ops for host-side code (copy of
 :mod:`nndetection_tpu.core.boxes.ops_np`; same interleaved corner format as
 :mod:`nndetection_tpu_torch.core.boxes.ops`)."""
 from __future__ import annotations
@@ -6,6 +6,8 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import numpy as np
+
+from nndetection_tpu_torch.ops.native import nms_native
 
 _MIN_IDX = {4: (0, 1), 6: (0, 1, 4)}
 _MAX_IDX = {4: (2, 3), 6: (2, 3, 5)}
@@ -67,7 +69,19 @@ def permute_boxes_np(boxes: np.ndarray, dims: Sequence[int]) -> np.ndarray:
 
 
 def nms_np(boxes: np.ndarray, scores: np.ndarray, iou_threshold: float) -> np.ndarray:
-    """Greedy NMS; returns kept indices sorted by descending score."""
+    """Greedy NMS; returns kept indices sorted by descending score. 3D boxes
+    go to the host library (:func:`nndetection_tpu_torch.ops.native.nms_native`),
+    which keeps the same indices as :func:`nms_np_plain`; without a C++
+    compiler, and for 2D boxes, :func:`nms_np_plain` runs."""
+    if len(boxes) == 0:
+        return np.zeros((0,), dtype=np.int64)
+    keep = nms_native(boxes, scores, iou_threshold)
+    return nms_np_plain(boxes, scores, iou_threshold) if keep is None else keep
+
+
+def nms_np_plain(boxes: np.ndarray, scores: np.ndarray, iou_threshold: float) -> np.ndarray:
+    """The NumPy greedy NMS: kept indices, descending score, equal scores in
+    index order."""
     if len(boxes) == 0:
         return np.zeros((0,), dtype=np.int64)
     order = np.argsort(-scores, kind="stable")

@@ -9,7 +9,9 @@ expected predictions.
 outputs padded to ``[N]`` per class and a validity mask, in one launch of
 the cluster kernel (:func:`nndetection_tpu_torch.ops.wbc_cluster.wbc_cluster`),
 which computes the IoUs it needs on chip: no ``N x N`` matrix.
-:func:`wbc_np` and :func:`batched_wbc_np` are the host NumPy copy, float64.
+:func:`wbc_np` and :func:`batched_wbc_np` are the host formulation, float64:
+the port's host library (``csrc/nndet_host.cpp``), or :func:`wbc_np_plain`
+in NumPy without a C++ compiler.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 
 from nndetection_tpu_torch.core.boxes.ops import box_size, prod_last
 from nndetection_tpu_torch.core.boxes.ops_np import box_area_np, box_iou_np
+from nndetection_tpu_torch.ops.native import wbc_native
 from nndetection_tpu_torch.ops.wbc_cluster import wbc_cluster
 
 
@@ -99,7 +102,31 @@ def wbc_np(
     use_area: bool = False,
     missing_weight: float = 1.0,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Single-class weighted box clustering.
+    """Single-class weighted box clustering on the host, float64: 3D boxes
+    go to the host library (:func:`nndetection_tpu_torch.ops.native.wbc_native`);
+    without a C++ compiler, and for 2D boxes, :func:`wbc_np_plain` runs.
+    Arguments and result as :func:`wbc_np_plain`."""
+    if len(boxes) == 0:
+        return np.zeros((0, boxes.shape[-1] if boxes.ndim == 2 else 6)), np.zeros((0,))
+    out = wbc_native(boxes, scores, weights, n_exp_preds, iou_thresh=iou_thresh,
+                     score_thresh=score_thresh, use_area=use_area, missing_weight=missing_weight)
+    if out is not None:
+        return out
+    return wbc_np_plain(boxes, scores, weights, n_exp_preds, iou_thresh, score_thresh,
+                        use_area, missing_weight)
+
+
+def wbc_np_plain(
+    boxes: np.ndarray,
+    scores: np.ndarray,
+    weights: np.ndarray,
+    n_exp_preds: np.ndarray,
+    iou_thresh: float,
+    score_thresh: float = 0.0,
+    use_area: bool = False,
+    missing_weight: float = 1.0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Single-class weighted box clustering in NumPy.
 
     Args:
         boxes: ``[N, 2*dim]``
@@ -128,17 +155,21 @@ def wbc_np(
         seed = idx_pool[0]
         m = ious[seed][idx_pool] > iou_thresh
         cluster = idx_pool[m]
-        n_found = len(cluster)
-        n_expected = float(np.mean(n_exp_preds[cluster]))
-        msw = ious[seed][cluster] * w[cluster]
-        ms = msw * scores[cluster]
-        n_missing = max(0.0, n_expected - n_found)
-        denom = msw.sum() + n_missing * msw.mean() * missing_weight
-        new_score = ms.sum() / denom
-        new_box = (boxes[cluster] * ms[:, None]).sum(0) / ms.sum()
-        if new_score > score_thresh:
-            out_boxes.append(new_box)
-            out_scores.append(new_score)
+        if len(cluster):
+            n_found = len(cluster)
+            n_expected = float(np.mean(n_exp_preds[cluster]))
+            msw = ious[seed][cluster] * w[cluster]
+            ms = msw * scores[cluster]
+            n_missing = max(0.0, n_expected - n_found)
+            denom = msw.sum() + n_missing * msw.mean() * missing_weight
+            new_score = ms.sum() / denom
+            new_box = (boxes[cluster] * ms[:, None]).sum(0) / ms.sum()
+            if new_score > score_thresh:
+                out_boxes.append(new_box)
+                out_scores.append(new_score)
+        # the seed leaves the pool even when it does not overlap itself (zero
+        # volume): an empty cluster, dropped
+        m[0] = True
         idx_pool = idx_pool[~m]
     if out_boxes:
         return np.stack(out_boxes, 0), np.asarray(out_scores)

@@ -2,8 +2,10 @@
 pooled-class free-response ROC, sensitivity interpolated at FPPI thresholds
 1/8..8; score = mean sensitivity (the LUNA CPM).
 
-The JAX package takes the ROC curve from scikit-learn's ``roc_curve``; this
-copy has its own :func:`roc_curve` in NumPy with the same semantics, so that
+The JAX package takes the ROC curve from scikit-learn's ``roc_curve`` (and
+its case evaluator ``roc_auc_score`` and ``average_precision_score``); this
+copy has its own :func:`roc_curve`, :func:`roc_auc_score` and
+:func:`average_precision_score` in NumPy with the same semantics, so that
 the port needs no scikit-learn.
 """
 from __future__ import annotations
@@ -11,6 +13,9 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+# NumPy 2 renamed trapz
+_trapezoid = getattr(np, "trapezoid", None) or np.trapz
 
 
 def roc_curve(y_true: np.ndarray, y_score: np.ndarray, drop_intermediate: bool = True):
@@ -39,6 +44,34 @@ def roc_curve(y_true: np.ndarray, y_score: np.ndarray, drop_intermediate: bool =
     fpr = fps / fps[-1] if fps[-1] > 0 else np.full(fps.shape, np.nan)
     tpr = tps / tps[-1] if tps[-1] > 0 else np.full(tps.shape, np.nan)
     return fpr, tpr, thresholds
+
+
+def roc_auc_score(y_true: np.ndarray, y_score: np.ndarray) -> float:
+    """Area under the ROC curve as ``sklearn.metrics.roc_auc_score`` computes
+    it for binary labels: the trapezoid over :func:`roc_curve`'s points (tied
+    scores form one point)."""
+    fpr, tpr, _ = roc_curve(y_true, y_score)
+    return float(_trapezoid(tpr, fpr))
+
+
+def average_precision_score(y_true: np.ndarray, y_score: np.ndarray) -> float:
+    """Average precision as ``sklearn.metrics.average_precision_score``
+    computes it for binary labels: the step sum of precision over the recall
+    increments, one step per distinct score from the highest down."""
+    y_true = np.asarray(y_true).reshape(-1) == 1
+    y_score = np.asarray(y_score).reshape(-1)
+    order = np.argsort(y_score, kind="stable")[::-1]
+    y_score = y_score[order]
+    y_true = y_true[order].astype(np.float64)
+    threshold_idxs = np.concatenate([np.nonzero(np.diff(y_score))[0], [y_true.size - 1]])
+    tps = np.cumsum(y_true, dtype=np.float64)[threshold_idxs]
+    fps = 1 + threshold_idxs.astype(np.float64) - tps
+    ps = tps + fps
+    precision = np.where(ps != 0, tps / np.where(ps != 0, ps, 1), 0.0)
+    recall = tps / tps[-1] if tps[-1] > 0 else np.ones_like(tps)
+    precision = np.concatenate([precision[::-1], [1.0]])
+    recall = np.concatenate([recall[::-1], [0.0]])
+    return float(max(0.0, -np.sum(np.diff(recall) * precision[:-1])))
 
 
 class FROCMetric:

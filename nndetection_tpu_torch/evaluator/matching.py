@@ -6,8 +6,10 @@ still-unmatched GT above each IoU threshold; ignored GT absorb detections
 without counting as TP or FP. The result fields (``dtMatches``,
 ``gtMatches``, ``dtScores``, ``gtIgnore``, ``dtIgnore``) are pycocotools'
 ``COCOeval.evaluateImg`` contract, which the AP and FROC accumulation read.
-The JAX package runs the greedy loop in its native host library when that is
-built; this copy runs the same loop in Python.
+The greedy loop runs in the port's host library
+(:func:`nndetection_tpu_torch.ops.native.coco_match_native`), as the JAX
+package runs it in its own; :func:`coco_match_plain` is the same loop in
+Python, which runs only without a C++ compiler.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Callable, Dict, List, Sequence
 import numpy as np
 
 from nndetection_tpu_torch.core.boxes.ops_np import box_iou_np
+from nndetection_tpu_torch.ops.native import coco_match_native
 
 
 def matching_batch(
@@ -93,9 +96,25 @@ def _matching_single_image_single_class(
     gt_ignore = gt_ignore[gt_ind]
 
     ious = iou_fn(pred_boxes, gt_boxes)
+    thresholds = np.asarray(iou_thresholds, np.float64)
+    out = coco_match_native(ious, gt_ignore.astype(np.uint8), thresholds)
+    dt_match, gt_match, dt_ignore = (coco_match_plain(ious, gt_ignore, thresholds)
+                                     if out is None else out)
+    return {
+        "dtMatches": dt_match,
+        "gtMatches": gt_match,
+        "dtScores": pred_scores,
+        "gtIgnore": np.asarray(gt_ignore).reshape(-1),
+        "dtIgnore": dt_ignore,
+    }
+
+
+def coco_match_plain(ious, gt_ignore, iou_thresholds):
+    """The greedy loop in Python: predictions ``ious [n_pred, n_gt]`` sorted
+    by descending score, ground truth with the ignored ones last. Returns
+    ``(dt_match [T, n_pred], gt_match [T, n_gt], dt_ignore [T, n_pred])``."""
     num_preds, num_gts = ious.shape
     t = len(iou_thresholds)
-
     gt_match = np.zeros((t, num_gts))
     dt_match = np.zeros((t, num_preds))
     dt_ignore = np.zeros((t, num_preds))
@@ -118,11 +137,4 @@ def _matching_single_image_single_class(
             dt_ignore[tind, dind] = int(gt_ignore[m])
             dt_match[tind, dind] = 1
             gt_match[tind, m] = 1
-
-    return {
-        "dtMatches": dt_match,
-        "gtMatches": gt_match,
-        "dtScores": pred_scores,
-        "gtIgnore": np.asarray(gt_ignore).reshape(-1),
-        "dtIgnore": dt_ignore,
-    }
+    return dt_match, gt_match, dt_ignore

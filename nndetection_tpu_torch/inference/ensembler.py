@@ -11,9 +11,14 @@
 The whole-case WBC runs on the ensembler's device: with ``device`` on CUDA,
 :func:`batched_wbc_device` clusters there through the kernels of
 :mod:`nndetection_tpu_torch.core.boxes.wbc` (float32). ``device=None`` keeps
-it on the host (NumPy, float64), as the JAX package does off the TPU. The
-model-level NMS stays the host float64 ``batched_nms_np`` everywhere, as in
-the JAX package.
+it on the host (float64), as the JAX package does off the TPU. The
+model-level NMS is the host float64 ``batched_nms_np`` everywhere, as in the
+JAX package. On the host, both loops run in the port's native library
+(:mod:`nndetection_tpu_torch.ops.native`), as the JAX package runs them in
+its own; in NumPy only without a C++ compiler.
+
+:class:`SegmentationEnsembler` stitches the tiles' softmax maps on its
+device.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from nndetection_tpu_torch.core.boxes.ops_np import (
     clip_boxes_to_image_np,
 )
 from nndetection_tpu_torch.core.boxes.wbc import batched_wbc, batched_wbc_np
+from nndetection_tpu_torch.data.patching import tile_weight_map
 from nndetection_tpu_torch.utils.io import load_pickle, save_pickle
 
 Device = Union[torch.device, str, None]
@@ -479,3 +485,42 @@ BOX_ENSEMBLERS = {
     "BoxEnsemblerLW": BoxEnsemblerLW,
     "BoxEnsemblerFastest": BoxEnsemblerFastest,
 }
+
+
+class SegmentationEnsembler:
+    """Sliding-window softmax accumulation with Gaussian tile weighting
+    (counterpart of the JAX package's ``SegmentationEnsembler``). The
+    accumulator ``[C, *case]`` and the weight map, float32, live on
+    ``device``; tiles are added in the order they come, each as
+    ``probs * w`` and then ``w``."""
+
+    def __init__(self, case_shape: Sequence[int], num_classes: int, device: Device = None):
+        self.case_shape = tuple(int(s) for s in case_shape)
+        self.num_classes = num_classes
+        self.device = torch.device("cpu" if device is None else device)
+        self.accum = torch.zeros((num_classes, *self.case_shape), dtype=torch.float32,
+                                 device=self.device)
+        self.weight = torch.zeros(self.case_shape, dtype=torch.float32, device=self.device)
+        self._tile_weight_cache: Dict[tuple, torch.Tensor] = {}
+
+    @classmethod
+    def sweep_parameters(cls) -> Tuple[Dict[str, Any], Dict[str, Sequence[Any]]]:
+        """No sweepable post-processing parameters: the sweep tunes boxes only."""
+        return {}, {}
+
+    def process_tile(self, probs, tile_origin: Sequence[int]) -> None:
+        """probs: ``[*patch, C]`` softmax probabilities (a tensor, moved to the
+        ensembler's device if it is elsewhere, or a NumPy array)."""
+        probs = torch.as_tensor(probs).to(self.device, torch.float32)
+        key = tuple(probs.shape[:-1])
+        w = self._tile_weight_cache.get(key)
+        if w is None:
+            w = self._tile_weight_cache[key] = torch.from_numpy(tile_weight_map(key)).to(self.device)
+        sl = tuple(slice(int(o), int(o) + p) for o, p in zip(tile_origin, key))
+        self.accum[(slice(None),) + sl] += probs.movedim(-1, 0) * w[None]
+        self.weight[sl] += w
+
+    def get_case_result(self) -> np.ndarray:
+        """The argmax class per voxel, ``[*case]`` int16 on the host."""
+        norm = self.accum / torch.clamp(self.weight[None], min=1e-8)
+        return torch.argmax(norm, dim=0).to(torch.int16).cpu().numpy()

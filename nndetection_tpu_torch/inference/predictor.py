@@ -1,6 +1,5 @@
 """Whole-case sliding-window predictor with mirror TTA and multi-model
-ensembling (counterpart of :mod:`nndetection_tpu.inference.predictor`; the
-segmentation output comes later).
+ensembling (counterpart of :mod:`nndetection_tpu.inference.predictor`).
 
 The padded case goes to the device once; tiles are cut there in batches of
 ``tiles_per_call``. For each batch, all flip variants are built on the
@@ -11,6 +10,10 @@ back to the host, where the box ensembler named by ``ensembler`` (any name
 of :data:`BOX_ENSEMBLERS`) merges them. Every (model x flip) is a separate
 ensembler stream, as in the JAX package. The ensembler gets the predictor's
 device: on the card its whole-case weighted box clustering runs there.
+
+With ``predict_seg`` each variant's softmax map is flipped back and the
+variants averaged on the device; the :class:`SegmentationEnsembler` stitches
+them there, tile by tile, and only the case's argmax map comes to the host.
 """
 from __future__ import annotations
 
@@ -23,9 +26,9 @@ import torch
 from nndetection_tpu_torch import resolve_device
 from nndetection_tpu_torch.core.boxes.ops_np import box_axis_vector_np
 from nndetection_tpu_torch.data.patching import compute_grid, pad_to_min_shape
-from nndetection_tpu_torch.inference.ensembler import BOX_ENSEMBLERS
+from nndetection_tpu_torch.inference.ensembler import BOX_ENSEMBLERS, SegmentationEnsembler
 from nndetection_tpu_torch.inference.restore import restore_detection
-from nndetection_tpu_torch.inference.tta import flip_image, get_tta_flips, invert_boxes
+from nndetection_tpu_torch.inference.tta import flip_image, get_tta_flips, invert_boxes, invert_seg
 from nndetection_tpu_torch.models.retina_unet import (
     RetinaUNet,
     RetinaUNetConfig,
@@ -69,8 +72,6 @@ class Predictor:
         call follow the voxel budget."""
         if not models:
             raise ValueError("Predictor needs at least one model")
-        if predict_seg:
-            raise NotImplementedError("segmentation output of the predictor comes later")
         self.ensembler_cls = BOX_ENSEMBLERS[ensembler]
         self.models = list(models)
         self.cfg = models[0].cfg
@@ -92,16 +93,26 @@ class Predictor:
             self.nets.append(net.to(self.device).eval())
         self.anchors = torch.from_numpy(self.cfg.anchors()[0]).to(self.device)
 
-    def _infer(self, net: RetinaUNet, tiles: torch.Tensor) -> Dict[str, np.ndarray]:
+    def _infer(self, net: RetinaUNet, tiles: torch.Tensor):
         """tiles ``[B, *patch, C]`` on the device -> per-variant detections
-        ``[V, B, K, ...]`` as NumPy arrays."""
+        ``[V, B, K, ...]`` as NumPy arrays, and with ``predict_seg`` the
+        variant-averaged softmax maps ``[B, *patch, C_seg]`` on the device
+        (else ``None``)."""
         cfg, flips, k = net.cfg, self.tta_flips, self.tile_detections
         n_var, b = len(flips), tiles.shape[0]
         variants = torch.cat([flip_image(tiles, f, spatial_offset=1) for f in flips])
         out = batched_postprocess(
-            cfg, net(variants), self.anchors, cfg.patch_size, with_seg=False,
+            cfg, net(variants), self.anchors, cfg.patch_size, with_seg=self.predict_seg,
             topk_candidates=self.tile_topk, max_out=k,
         )
+        seg = None
+        if self.predict_seg:
+            probs = out["seg_probs"].view(n_var, b, *out["seg_probs"].shape[1:])
+            # each variant flipped back, then the mean: feeding it once per
+            # tile equals feeding every variant under the ensembler's weight
+            # normalization
+            seg = sum(invert_seg(probs[v], flips[v], spatial_offset=1)
+                      for v in range(n_var)) / float(n_var)
         boxes = out["boxes"].view(n_var, b, k, 2 * cfg.dim)
         result = {
             # each variant's boxes back in unflipped tile coordinates
@@ -111,7 +122,7 @@ class Predictor:
             "labels": out["labels"].view(n_var, b, k),
             "valid": out["valid"].view(n_var, b, k),
         }
-        return {name: t.cpu().numpy() for name, t in result.items()}
+        return {name: t.cpu().numpy() for name, t in result.items()}, seg
 
     @torch.inference_mode()
     def predict_case(
@@ -127,6 +138,10 @@ class Predictor:
         box_ens = self.ensembler_cls(
             case_shape, parameters=self.ensembler_parameters, properties=properties,
             device=self.device)
+        seg_ens = None
+        if self.predict_seg:
+            n_seg = (1 if self.cfg.segmenter_fg_bg else self.cfg.seg_classes) + 1
+            seg_ens = SegmentationEnsembler(case_shape, n_seg, device=self.device)
 
         # the case goes to the device once, in bfloat16 as the JAX predictor
         # sends its tiles; tiles are cut there, channel-last
@@ -147,7 +162,7 @@ class Predictor:
             stream_names = [f"{bundle.name}{m_idx}_t{flips}" for flips in self.tta_flips]
             for b_idx, tiles in enumerate(batches):
                 start = b_idx * bsz
-                out = self._infer(net, tiles)
+                out, seg = self._infer(net, tiles)
                 for v, stream in enumerate(stream_names):
                     box_ens.add_model(stream)
                     for b in range(tiles.shape[0]):
@@ -159,12 +174,18 @@ class Predictor:
                             tile_origin=grid[start + b],
                             tile_size=self.patch_size,
                         )
+                if seg_ens is not None:
+                    for b in range(tiles.shape[0]):
+                        seg_ens.process_tile(seg[b], grid[start + b])
 
         result = box_ens.get_case_result()
         # undo the min-shape padding offset
         if lower.any() and len(result["pred_boxes"]):
             off = box_axis_vector_np(lower.astype(np.float64), self.cfg.dim)
             result["pred_boxes"] = result["pred_boxes"] - off[None]
+        if seg_ens is not None:
+            sl = tuple(slice(int(lo), int(lo) + s) for lo, s in zip(lower, data.shape[1:]))
+            result["pred_seg"] = seg_ens.get_case_result()[sl]
         result["ensembler"] = box_ens
 
         if restore and properties:

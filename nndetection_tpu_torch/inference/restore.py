@@ -1,6 +1,7 @@
-"""Restore box predictions from preprocessed to original image geometry
-(copy of :func:`nndetection_tpu.inference.restore.restore_detection`):
-inverse transpose, spacing rescale and crop-offset shift."""
+"""Restore predictions from preprocessed to original image geometry (copy of
+:mod:`nndetection_tpu.inference.restore`): inverse transpose, spacing rescale
+and crop-offset shift for boxes; inverse transpose, resample and uncrop for
+label maps."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -8,6 +9,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from nndetection_tpu_torch.core.boxes.ops_np import box_axis_vector_np, permute_boxes_np
+from nndetection_tpu_torch.data.resample import resample_seg
 
 
 def invert_transpose(transpose_forward: Sequence[int]) -> list:
@@ -49,3 +51,22 @@ def restore_detection(
         lo = np.asarray([c[0] for c in crop_bbox], dtype=np.float64)
         boxes = boxes + box_axis_vector_np(lo, dim)[None]
     return boxes
+
+
+def restore_fmap(
+    seg: np.ndarray,
+    transpose_forward: Sequence[int],
+    original_shape_cropped: Sequence[int],
+    original_shape: Sequence[int],
+    crop_bbox: Optional[Sequence[Sequence[int]]] = None,
+) -> np.ndarray:
+    """Restore a label map to the original image grid: inverse transpose ->
+    resample to the cropped shape -> paste into the full-size volume."""
+    seg = np.transpose(seg, invert_transpose(transpose_forward))
+    seg = resample_seg(seg, original_shape_cropped)
+    if crop_bbox is None:
+        return seg
+    out = np.zeros(tuple(original_shape), dtype=seg.dtype)
+    sl = tuple(slice(int(c[0]), int(c[0]) + s) for c, s in zip(crop_bbox, seg.shape))
+    out[sl] = seg
+    return out

@@ -34,6 +34,11 @@ def flip_image(images: torch.Tensor, flips: Sequence[int], spatial_offset: int =
     return torch.flip(images, dims=[f + spatial_offset for f in flips])
 
 
+def invert_seg(seg: torch.Tensor, flips: Sequence[int], spatial_offset: int = 1) -> torch.Tensor:
+    """Inverse mirror of segmentation maps (a flip is its own inverse)."""
+    return flip_image(seg, flips, spatial_offset)
+
+
 def invert_boxes(boxes: torch.Tensor, flips: Sequence[int], patch_size: Sequence[int]) -> torch.Tensor:
     """Map boxes ``[..., 2*dim]`` predicted on a flipped tile back to
     unflipped tile coordinates: per flipped axis, swap lo/hi and reflect."""

@@ -7,6 +7,10 @@ shared library with a plain C interface, under ``_build/`` (git-ignored);
 flags, so an edited source is rebuilt and a current one is reused. Callers
 bind each entry point with explicit ``argtypes``; every entry point returns
 ``cudaGetLastError()`` after its launch.
+
+:func:`build_host` does the same for the host library ``csrc/nndet_host.cpp``
+(the greedy NMS, WBC and COCO matching loops on the CPU) with the host C++
+compiler, no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -105,6 +109,66 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         _lib = ctypes.CDLL(str(build()))
     return _lib
+
+
+HOST_SOURCE = CSRC / "nndet_host.cpp"
+# no -march=native: one build serves any x86-64 host. No contraction: GCC's
+# default -ffp-contract=fast may fuse vol(a) + vol(b) - inter into an FMA, and
+# the float64 IoU would then round otherwise than NumPy's box_iou_np
+HOST_CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared", "-ffp-contract=off")
+
+
+def host_compiler() -> Optional[str]:
+    """``$CXX``, else ``g++`` or ``c++`` on ``PATH``; ``None`` if none is
+    found."""
+    for cand in (os.environ.get("CXX"), "g++", "c++"):
+        path = cand and shutil.which(cand)
+        if path:
+            return path
+    return None
+
+
+def host_library_path(build_dir: Path = BUILD_DIR) -> Path:
+    h = hashlib.sha256(" ".join(HOST_CXX_FLAGS).encode())
+    h.update(HOST_SOURCE.read_bytes())
+    return Path(build_dir) / f"libnndet_torch_host_{h.hexdigest()[:16]}.so"
+
+
+def build_host(build_dir: Path = BUILD_DIR) -> Optional[Path]:
+    """Compile ``csrc/nndet_host.cpp`` unless a library of the current source
+    exists; ``None`` when no C++ compiler is found. A failed compile raises."""
+    out = host_library_path(build_dir)
+    if out.exists():
+        return out
+    cxx = host_compiler()
+    if cxx is None:
+        return None
+    out.parent.mkdir(parents=True, exist_ok=True)
+    # compile in a private directory and rename: concurrent builds never load
+    # a half-written library
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        lib = Path(tmp) / out.name
+        cmd = [cxx, *HOST_CXX_FLAGS, str(HOST_SOURCE), "-o", str(lib)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"host library build failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(lib, out)
+    return out
+
+
+_host_lib: Optional[ctypes.CDLL] = None
+
+
+def load_host() -> Optional[ctypes.CDLL]:
+    """Build if needed and load the host library (once per process); ``None``
+    when no C++ compiler is found. A failed compile or ``dlopen`` raises."""
+    global _host_lib
+    if _host_lib is None:
+        path = build_host()
+        if path is not None:
+            _host_lib = ctypes.CDLL(str(path))
+    return _host_lib
 
 
 @functools.lru_cache(maxsize=None)

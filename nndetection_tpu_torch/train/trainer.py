@@ -286,8 +286,9 @@ class Trainer:
     # ------------------------------------------------------------------
     def save_checkpoint(self, state: TrainState, path, extra: Optional[dict] = None) -> None:
         """A ``torch.save`` checkpoint of the whole state with the model
-        configuration as JSON-compatible data. (The JAX package's pickles
-        need flax and optax and are not read.)"""
+        configuration as JSON-compatible data. For inference,
+        :mod:`nndetection_tpu_torch.inference.loading` reads these and the
+        JAX package's checkpoint pickles alike."""
         payload = {
             "schema_version": CKPT_SCHEMA_VERSION,
             "params": state.model.state_dict(),

@@ -11,7 +11,9 @@ import torch
 
 import nndetection_tpu.inference.ensembler as jax_ens
 import nndetection_tpu.ops.native as jax_native
+import nndetection_tpu_torch.core.boxes.wbc as port_wbc
 import nndetection_tpu_torch.inference.ensembler as ens
+from nndetection_tpu_torch.ops import native
 from tests.test_torch_nms import random_boxes
 
 torch.set_num_threads(1)
@@ -26,9 +28,12 @@ DEVICE_TOL = dict(rtol=1e-5, atol=1e-6)
 
 @pytest.fixture(autouse=True)
 def numpy_twin(monkeypatch):
-    """The JAX host path through its NumPy twin, which the port copies, in
-    place of its native C++ WBC (same algorithm, other float64 summation)."""
+    """The host WBC of both packages through their NumPy loops, which the
+    port copies, in place of their native C++ WBC (same algorithm, other
+    float64 summation); the native one is held to them below and in
+    ``tests/test_torch_native.py``."""
     monkeypatch.setattr(jax_native, "wbc_native", lambda *a, **k: None)
+    monkeypatch.setattr(port_wbc, "wbc_native", lambda *a, **k: None)
 
 
 def tile_streams(seed, streams=3, n=40, classes=2):
@@ -80,6 +85,18 @@ def assert_results(got, want, **tol):
 def test_host_path_equals_jax(name):
     got, want = pair(name, tile_streams(1))
     assert_results(got.get_case_result(), want.get_case_result())
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_native_host_path_matches_jax(monkeypatch, name):
+    """The port's host path through its native library, the JAX package's
+    through its own (or its NumPy loop where that is not built): float64
+    sums in another order, so at ``rtol=1e-12``."""
+    monkeypatch.undo()
+    native.NATIVE_CALLS.clear()
+    got, want = pair(name, tile_streams(1))
+    assert_results(got.get_case_result(), want.get_case_result(), rtol=1e-12, atol=0)
+    assert native.NATIVE_CALLS["wbc_3d"] > 0
 
 
 @pytest.mark.parametrize("name", NAMES)

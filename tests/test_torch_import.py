@@ -1,5 +1,6 @@
 """The PyTorch port imports without JAX, flax, scikit-learn or the JAX
-package, and no file of it imports them."""
+package, and no file of it imports them; its host library is built from its
+own source."""
 import re
 import subprocess
 import sys
@@ -26,14 +27,18 @@ SLICE_MODULES = [
     "nndetection_tpu_torch.data.gt_prep",
     "nndetection_tpu_torch.data.instances",
     "nndetection_tpu_torch.data.patching",
+    "nndetection_tpu_torch.data.resample",
     "nndetection_tpu_torch.evaluator",
+    "nndetection_tpu_torch.evaluator.case",
     "nndetection_tpu_torch.evaluator.coco",
     "nndetection_tpu_torch.evaluator.det",
     "nndetection_tpu_torch.evaluator.froc",
     "nndetection_tpu_torch.evaluator.hist",
     "nndetection_tpu_torch.evaluator.matching",
+    "nndetection_tpu_torch.evaluator.registry",
     "nndetection_tpu_torch.inference",
     "nndetection_tpu_torch.inference.ensembler",
+    "nndetection_tpu_torch.inference.loading",
     "nndetection_tpu_torch.inference.predictor",
     "nndetection_tpu_torch.inference.restore",
     "nndetection_tpu_torch.inference.sweeper",
@@ -51,13 +56,16 @@ SLICE_MODULES = [
     "nndetection_tpu_torch.ops.conv_in_stats",
     "nndetection_tpu_torch.ops.instance_norm",
     "nndetection_tpu_torch.ops.iou_matrix",
+    "nndetection_tpu_torch.ops.native",
     "nndetection_tpu_torch.ops.nms",
     "nndetection_tpu_torch.ops.suppression",
     "nndetection_tpu_torch.ops.wbc_cluster",
+    "nndetection_tpu_torch.pipeline",
     "nndetection_tpu_torch.train",
     "nndetection_tpu_torch.train.lr",
     "nndetection_tpu_torch.train.trainer",
     "nndetection_tpu_torch.utils",
+    "nndetection_tpu_torch.utils.analysis",
     "nndetection_tpu_torch.utils.io",
 ]
 
@@ -91,6 +99,19 @@ def test_imports_with_jax_and_flax_blocked():
 
 
 def test_no_source_imports_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|jaxlib|nndetection_tpu|sklearn)\b", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|jaxlib|optax|nndetection_tpu|sklearn)\b",
+                         re.M)
     offenders = [str(p) for p in PKG.rglob("*.py") if pattern.search(p.read_text())]
     assert offenders == []
+
+
+def test_native_source_lies_in_the_package():
+    """``ops.native`` builds from ``nndetection_tpu_torch/csrc/``, never from
+    the JAX package's root ``csrc/``."""
+    from nndetection_tpu_torch.ops import _build
+
+    assert _build.HOST_SOURCE == PKG / "csrc" / "nndet_host.cpp"
+    assert _build.HOST_SOURCE.exists()
+    assert _build.host_library_path().parent == PKG / "_build"
+    assert "/csrc/Makefile" not in (PKG / "ops" / "native.py").read_text()
+    assert "make" not in (PKG / "ops" / "_build.py").read_text().split()
