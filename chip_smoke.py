@@ -81,7 +81,22 @@ Phases, each printing its findings:
    segmentation and ``BoxEnsemblerSelective``, first and warm: seconds, the
    consolidation of its saved state, peak memory; #1, #2, #7 and the cluster
    kernel must launch and the model-level NMS run in the host library;
-12. serve fused and train fused: phases 6 (the 140x320x320 case) and 7 under
+12. train_aug: the fed training path on the LUNA plan at batch 8 (two
+   classes): 4 seeded cases 224x288x288 on disk in the loader's format,
+   ``make_splits`` and ``build_loaders`` (fold 0, ``base_more``, generator
+   patch 211x250x250, pinned host batches), ``Trainer(augment_cfg=...)``,
+   2 fed warm-up steps, then ``fit`` over 6 fed steps and a validation
+   epoch of 2 batches with ``BoxEvaluator``, both through
+   ``PrefetchIterator``; the launch counts are reset just before and all
+   four instance-norm kernels must have run; every loss finite, parameters
+   changed, ``model_last.ckpt`` written. Beside it: s/step and patches/s
+   next to phase 7's, the host ms of one ``generate_batch``, the host ->
+   card ms of one batch, the card ms of ``augment_batch``, the card's idle
+   share over 6 fed steps under ``torch.profiler``, peak memory, and one
+   batch's draws made on the card and applied on the card and on the CPU
+   (images within 1e-4; seg equal but at voxels whose source coordinate
+   lies within 1e-4 of a half, counted);
+13. serve fused and train fused: phases 6 (the 140x320x320 case) and 7 under
    ``NNDET_CONV_FUSED=1``, restored after; #5 must launch 7 times per model
    forward (both convs of stage 0, the second of stages 1-5), so 14 times
    per train step with remat, beside the other kernels.
@@ -100,8 +115,8 @@ and fused (kernel time by name; the tables into ``DIR/train_profile.txt`` and
 runs only the phases named (of ``build``, ``kernels``, ``conv``, ``norm``,
 ``nms`` and ``wbc`` (#5's, #1's, #7's and the cluster kernel's checks
 alone), ``reference``, ``forward``, ``serve``, ``consolidate``,
-``nms_mask``, ``sweep``, ``deploy``, ``train``, ``serve_fused``,
-``train_fused``); the
+``nms_mask``, ``sweep``, ``deploy``, ``train``, ``train_aug``,
+``serve_fused``, ``train_fused``); the
 device phase always runs, the ``kernels`` JSON line only when every phase
 it reads ran. With no argument every phase but ``conv``, ``norm``, ``nms``
 and ``wbc`` runs (``kernels`` holds them).
@@ -1986,6 +2001,245 @@ def phase_train_fused(device, unfused, **kwargs) -> dict:
     return r
 
 
+# the fed training phase: preprocessed cases of the LUNA plan's scale on
+# disk, loaded, prefetched, augmented on the card
+TRAIN_AUG_CASE_SHAPE = (224, 288, 288)
+AUG_CARD_CPU_ATOL = 1e-4  # images, float32 compute on both
+SEG_ROUNDING_MARGIN = 1e-4  # a source coordinate this near a half is a near-tie
+
+
+def write_train_cases(image_dir, n_cases=4, shape=TRAIN_AUG_CASE_SHAPE, seed=0):
+    """``n_cases`` seeded preprocessed cases in the loader's format:
+    ``{case}.npy`` float32 ``[2, *shape]`` (a noise image with brighter
+    ellipsoids, then the instance ids) and ``{case}_boxes.pkl``; 2-4
+    ellipsoid instances a case, of classes 0 and 1 in turn. Returns the
+    case ids."""
+    from nndetection_tpu_torch.utils.io import save_pickle
+
+    rng = np.random.default_rng(seed)
+    image_dir.mkdir(parents=True, exist_ok=True)
+    ids = []
+    for c in range(n_cases):
+        arr = np.empty((2, *shape), np.float32)
+        arr[0] = rng.standard_normal(shape, dtype=np.float32)
+        arr[1] = 0.0
+        boxes, classes = [], []
+        n_inst = int(rng.integers(2, 5))
+        for iid in range(1, n_inst + 1):
+            radius = rng.uniform(4.0, 14.0, 3)
+            centre = rng.uniform(radius + 2, np.asarray(shape) - radius - 2)
+            lo = np.floor(centre - radius).astype(int)
+            hi = np.ceil(centre + radius).astype(int) + 1
+            grid = np.meshgrid(*[np.arange(a, b) for a, b in zip(lo, hi)], indexing="ij")
+            inside = sum(((g - m) / r) ** 2 for g, m, r in zip(grid, centre, radius)) <= 1.0
+            box = tuple(slice(a, b) for a, b in zip(lo, hi))
+            arr[1][box][inside] = iid
+            arr[0][box][inside] += 2.0
+            where = np.nonzero(inside)
+            b_lo = [int(w.min()) + a for w, a in zip(where, lo)]
+            b_hi = [int(w.max()) + a + 1 for w, a in zip(where, lo)]
+            boxes.append([b_lo[0], b_lo[1], b_hi[0], b_hi[1], b_lo[2], b_hi[2]])
+            classes.append((iid - 1) % 2)
+        cid = f"case_{c:03d}"
+        np.save(image_dir / f"{cid}.npy", arr)
+        save_pickle({"boxes": np.asarray(boxes, np.float32),
+                     "classes": np.asarray(classes, np.int64),
+                     "instance_ids": np.arange(1, n_inst + 1, dtype=np.int64)},
+                    image_dir / f"{cid}_boxes.pkl")
+        ids.append(cid)
+    return ids
+
+
+def busy_share(fn) -> tuple:
+    """``fn()`` under ``torch.profiler``: its wall seconds and the seconds
+    the card was busy (kernels and copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return wall, busy_us / 1e6
+
+
+def flip_like(mask, params, cfg):
+    """``mask [B, *patch]`` mirrored per sample as ``apply_augment`` mirrors
+    the segmentation."""
+    b, dim = mask.shape[0], mask.dim() - 1
+    for ax in cfg.mirror_axes:
+        if ax < dim:
+            flip = params.flips[:, ax].view((b,) + (1,) * dim)
+            mask = torch.where(flip, mask.flip(ax + 1), mask)
+    return mask
+
+
+def augment_card_vs_cpu(device, raw, cfg, seed=123) -> dict:
+    """One batch's draws made on the card, copied to the CPU, and
+    ``apply_augment`` on both devices from the same generator-patch batch:
+    images within ``AUG_CARD_CPU_ATOL``, seg equal but at voxels whose
+    source coordinate lies within ``SEG_ROUNDING_MARGIN`` of a half."""
+    from nndetection_tpu_torch.data.augment import (
+        apply_augment,
+        augment_coords,
+        sample_augment_params,
+    )
+
+    images, seg = raw["images"], raw["seg_instances"]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = sample_augment_params(cfg, images.shape[0], images.shape[-1], gen, device)
+    x_card, s_card = apply_augment(images.to(device), seg.to(device), params, cfg)
+    cpu = params.to("cpu")
+    t0 = time.perf_counter()
+    x_cpu, s_cpu = apply_augment(images, seg, cpu, cfg)
+    cpu_s = time.perf_counter() - t0
+    err = check_close("train_aug card vs CPU images", x_card.cpu(), x_cpu, 0.0, AUG_CARD_CPU_ATOL)
+    coords = augment_coords(cpu, tuple(seg.shape[1:]), cfg)
+    frac = coords.abs() - coords.abs().floor()
+    near = flip_like(((frac - 0.5).abs() < SEG_ROUNDING_MARGIN).any(1), cpu, cfg)
+    halves = flip_like((frac == 0.5).any(1), cpu, cfg)
+    differ = s_card.cpu() != s_cpu
+    bad = int((differ & ~near).sum())
+    if bad:
+        raise AssertionError(f"train_aug card vs CPU: {bad} seg voxels differ away from a "
+                             f"rounding boundary")
+    fired = {k: int(getattr(cpu, k).sum()) for k in ("do_rotation", "do_scale", "do_lowres",
+                                                      "do_noise", "do_blur", "do_gamma")}
+    return dict(max_abs_err=err, seg_differ=int(differ.sum()), near=int(near.sum()),
+                halves=int(halves.sum()), voxels=s_cpu.numel(), fired=fired, cpu_s=cpu_s)
+
+
+def phase_train_aug(device, prepared=None, shape=TRAIN_AUG_CASE_SHAPE, n_cases=4, batch=8,
+                    warmup=2, steps=6, val_batches=2) -> dict:
+    """The body of the JAX ``run_train`` after the plan, on the LUNA plan at
+    batch 8: seeded cases on disk, ``make_splits`` and ``build_loaders``
+    (fold 0, ``base_more``), then ``Trainer(augment_cfg=...)``: ``warmup``
+    fed steps, then ``fit`` over one epoch of ``steps`` fed steps and a
+    validation epoch of ``val_batches`` with ``BoxEvaluator``, both sides
+    through ``PrefetchIterator``. The launch counts cover the warm-up and
+    the fit. ``prepared``: the prepared-batch train phase of this run."""
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    from nndetection_tpu_torch.data.aug_presets import get_augmentation
+    from nndetection_tpu_torch.data.augment import augment_batch
+    from nndetection_tpu_torch.data.loader import PatchLoader, PrefetchIterator
+    from nndetection_tpu_torch.evaluator.det import BoxEvaluator
+    from nndetection_tpu_torch.ops import LAUNCHES
+    from nndetection_tpu_torch.pipeline import build_loaders, make_splits
+    from nndetection_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(luna_cfg(), classifier_classes=2, seg_classes=2)
+    plan = SimpleNamespace(patch_size=cfg.patch_size, max_instances_per_patch=32)
+    aug = get_augmentation("base_more", cfg.patch_size)
+    tcfg = TrainerConfig(batch_size=batch, warm_iterations=10, max_epochs=1,
+                         num_train_batches_per_epoch=steps,
+                         num_val_batches_per_epoch=val_batches, swa_epochs=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        ids = write_train_cases(tmp / "imagesTr", n_cases, shape)
+        t_write = time.perf_counter() - t0
+        splits = make_splits(ids, tmp / "splits_final.pkl")
+        train_loader, val_loader = build_loaders(plan, tmp / "imagesTr", splits, 0, batch,
+                                                 aug_cfg=aug, device=device)
+        # the host's and the copy's costs, on a twin of the train loader (the
+        # fit's sequence stays untouched)
+        twin = PatchLoader(train_loader.records, train_loader.patch_size, batch,
+                           max_instances=plan.max_instances_per_patch, seed=99,
+                           inner_patch_size=cfg.patch_size, pin_memory=train_loader.pin_memory)
+        host = {}
+        for pin in (False, twin.pin_memory):
+            twin.pin_memory, host[pin] = pin, []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                raw = twin.generate_batch()
+                host[pin].append(1e3 * (time.perf_counter() - t0))
+        batch_mib = sum(v.numel() * v.element_size() for v in raw.values()) / 2 ** 20
+        h2d_ms = median_ms(lambda: {k: v.to(device, non_blocking=True) for k, v in raw.items()},
+                           reps=5, warmup=1)
+        images, seg = raw["images"].to(device), raw["seg_instances"].to(device)
+        gen = torch.Generator(device=device).manual_seed(7)
+        aug_ms = median_ms(lambda: augment_batch(gen, images, seg, aug), reps=5, warmup=2)
+        del images, seg
+        check = augment_card_vs_cpu(device, raw, aug)
+
+        trainer = Trainer(cfg, tcfg, device, output_dir=tmp / "fold0", augment_cfg=aug)
+        state = trainer.init_state(rng_seed=0)
+        before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        state, m_warm = trainer.train_epoch(
+            state, PrefetchIterator(train_loader.epoch(warmup), depth=2), 0)
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - t0
+        peak_train = torch.cuda.max_memory_allocated() / 2 ** 30
+        logs = []
+        state = trainer.fit(
+            train_iter_fn=lambda e: PrefetchIterator(train_loader.epoch(steps), depth=2),
+            val_iter_fn=lambda e: PrefetchIterator(val_loader.epoch(val_batches), depth=2),
+            evaluator_fn=lambda: BoxEvaluator.create(["c0", "c1"]),
+            log_fn=lambda e, m: logs.append(m), state=state)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not (tmp / "fold0" / "model_last.ckpt").exists():
+            raise AssertionError("train_aug: fit wrote no model_last.ckpt")
+        wall, busy = busy_share(lambda: trainer.train_epoch(
+            state, PrefetchIterator(train_loader.epoch(steps), depth=2), 1))
+
+    missing = [k for k in TRAIN_KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"train_aug: kernels never launched on the main path: {missing}")
+    (m,) = logs
+    for metrics in (m_warm, m):
+        bad = [k for k, v in metrics.items()
+               if k.startswith(("train_", "val_")) and not np.isfinite(v)]
+        if bad or metrics["train_nonfinite_steps"]:
+            raise AssertionError(f"train_aug: non-finite losses {bad}")
+    changed = sum(not torch.equal(p, before[n]) for n, p in state.model.named_parameters())
+    if changed == 0:
+        raise AssertionError("train_aug: no parameter changed")
+    s_per_step = m["epoch_time_s"] / m["steps"]
+    patches = batch / s_per_step
+    beside = ("" if prepared is None else
+              f" (prepared batches in this run: {prepared['s_per_step']:.4f} s/step, "
+              f"{prepared['patches_per_s']:.2f} patches/s)")
+    log(f"[train_aug] LUNA plan patch {cfg.patch_size} batch {batch} {cfg.dtype} remat={cfg.remat}, "
+        f"2 classes, base_more, generator patch {train_loader.patch_size}; {n_cases} cases "
+        f"{shape} written in {t_write:.2f} s ({len(train_loader.records)} train, "
+        f"{len(val_loader.records)} val); first {warmup} fed steps {t_warm:.2f} s; {m['steps']} "
+        f"fed steps {m['epoch_time_s']:.3f} s = {s_per_step:.4f} s/step, {patches:.2f} "
+        f"patches/s{beside}; peak device memory {peak_train:.2f} GiB over the warm-up "
+        f"steps, {peak:.2f} GiB with the fit and its validation; losses "
+        + ", ".join(f"{k} {m['train_' + k]:.4f}" for k in ("cls", "reg", "seg_ce", "seg_dice"))
+        + f"; num_pos {m['train_num_pos']:.1f}; val {val_batches} batches: cls "
+        f"{m['val_cls']:.4f}, {tcfg.monitor_key} {m.get(tcfg.monitor_key, float('nan')):.4f}; "
+        f"{changed}/{len(before)} parameter tensors changed; model_last.ckpt written")
+    log(f"[train_aug] host generate_batch, median of 3 ({batch_mib:.1f} MiB a batch): "
+        + "; ".join(f"pinned {pin}: {statistics.median(v):.1f} ms ("
+                    + ", ".join(f"{t:.1f}" for t in v) + ")" for pin, v in host.items())
+        + f"; host -> card {h2d_ms:.3f} ms per batch (pinned {twin.pin_memory}); "
+        f"augment_batch {aug_ms:.3f} ms per batch on the card; "
+        f"{steps} fed steps under the profiler: wall {wall:.3f} s, card busy {busy:.3f} s, idle "
+        f"share {100 * (1 - busy / wall):.1f} %")
+    log(f"[train_aug] card vs CPU augmentation (the card's draws): images max abs err "
+        f"{check['max_abs_err']:.2e} (atol {AUG_CARD_CPU_ATOL}); seg voxels that differ "
+        f"{check['seg_differ']} of {check['voxels']} (allowed within {SEG_ROUNDING_MARGIN} of "
+        f"a half: {check['near']} voxels sample there, {check['halves']} of them at exact "
+        f"halves); transforms fired {check['fired']}; "
+        f"apply_augment on the CPU {check['cpu_s']:.2f} s")
+    log(f"[train_aug] kernel launches during train_aug: {launches}")
+    return dict(launches=launches, s_per_step=s_per_step, patches_per_s=patches, peak_gib=peak)
+
+
 def profile_train_step(trainer, state, targets, out_dir, label="train") -> None:
     """Device time by kernel over one train step (``torch.profiler``), the
     table into ``out_dir/<label>_profile.txt``."""
@@ -2013,7 +2267,8 @@ def profile_train_step(trainer, state, targets, out_dir, label="train") -> None:
 
 
 PHASES = ("build", "kernels", "conv", "norm", "nms", "wbc", "reference", "forward", "serve",
-          "consolidate", "nms_mask", "sweep", "deploy", "train", "serve_fused", "train_fused")
+          "consolidate", "nms_mask", "sweep", "deploy", "train", "train_aug", "serve_fused",
+          "train_fused")
 # the checks of one kernel alone, which ``kernels`` includes
 KERNEL_PHASES = ("conv", "norm", "nms", "wbc")
 
@@ -2079,6 +2334,8 @@ def main() -> None:
     if "train" in phases:
         train = phase_train(device, profile_dir=profile_dir)
         launches["train"] = train["launches"]
+    if "train_aug" in phases:
+        launches["train aug"] = phase_train_aug(device, train)["launches"]
     if "serve_fused" in phases:
         launches["serve fused"] = phase_serve_fused(device)
     if "train_fused" in phases:

@@ -1,17 +1,118 @@
-"""Stage entry points of the port (counterpart of :mod:`nndetection_tpu.pipeline`);
-so far the prediction of a directory of preprocessed cases."""
+"""Stage entry points of the port (counterpart of :mod:`nndetection_tpu.pipeline`):
+the folds and loaders of training, and the prediction of a directory of
+preprocessed cases."""
 from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from nndetection_tpu_torch import resolve_device
+from nndetection_tpu_torch.data.augment import (
+    AugmentConfig,
+    generator_patch_size_for,
+    get_generator_patch_size,
+)
+from nndetection_tpu_torch.data.loader import PatchLoader, build_case_records
 from nndetection_tpu_torch.inference.predictor import ModelBundle, Predictor
 from nndetection_tpu_torch.inference.restore import restore_fmap
 from nndetection_tpu_torch.utils.io import load_pickle, save_pickle
+
+NUM_FOLDS = 5
+SPLIT_SEED = 12345
+
+
+def make_splits(case_ids: Sequence[str], path, num_folds: int = NUM_FOLDS) -> List[Dict]:
+    """Deterministic K-fold split, read from ``path`` when it exists, else
+    written there (``splits_final.pkl``)."""
+    path = Path(path)
+    if path.exists():
+        return load_pickle(path)
+    rng = np.random.RandomState(SPLIT_SEED)
+    ids = np.asarray(sorted(case_ids))
+    perm = rng.permutation(len(ids))
+    folds = np.array_split(perm, num_folds)
+    splits = []
+    for k in range(num_folds):
+        val = set(folds[k].tolist())
+        splits.append(
+            {
+                "train": [str(ids[i]) for i in range(len(ids)) if i not in val],
+                "val": [str(ids[i]) for i in sorted(val)],
+            }
+        )
+    save_pickle(splits, path)
+    return splits
+
+
+def build_loaders(
+    plan: Any,
+    image_dir,
+    splits: List[Dict],
+    fold: int,
+    batch_size: int,
+    oversample: float = 0.5,
+    augment: bool = True,
+    seed: int = 0,
+    aug_cfg: Optional[AugmentConfig] = None,
+    device_pool: Any = "auto",
+    device: Union[torch.device, str] = "cuda",
+):
+    """The train and validation :class:`PatchLoader` of ``fold`` (``-1``:
+    every case in both) over the cases of ``image_dir``. ``plan`` is any
+    object with ``patch_size`` and ``max_instances_per_patch``.
+
+    The train loader crops the generator patch of ``aug_cfg`` (the final
+    patch without augmentation) with the foreground constraint on the
+    final patch; the validation loader crops the final patch and replays
+    the same patches every epoch. Both are host loaders, as the JAX
+    package builds them off a TPU; ``device_pool=True`` (the JAX package's
+    TPU patch pool) is not ported. For the card (``device``, unless the
+    caller passes ``"cpu"``) the batches come in pinned memory, so that
+    their copy to the card is asynchronous."""
+    if device_pool is True:
+        raise NotImplementedError(
+            "the device patch pool is not ported (ROADMAP.md, queue 1 item 4): "
+            "the port's loaders are host loaders")
+    pin = resolve_device(device).type == "cuda"
+    records = build_case_records(image_dir)
+    by_id = {r.case_id: r for r in records}
+    if fold == -1:
+        train_ids = sorted(by_id)
+        val_ids = sorted(by_id)
+    else:
+        train_ids = [c for c in splits[fold]["train"] if c in by_id]
+        val_ids = [c for c in splits[fold]["val"] if c in by_id]
+    if not augment:
+        gen_patch = tuple(plan.patch_size)
+    elif aug_cfg is not None:
+        gen_patch = generator_patch_size_for(aug_cfg)
+    else:
+        gen_patch = get_generator_patch_size(plan.patch_size)
+    train_loader = PatchLoader(
+        [by_id[c] for c in train_ids],
+        patch_size=gen_patch,
+        batch_size=batch_size,
+        oversample_foreground_percent=oversample,
+        max_instances=plan.max_instances_per_patch,
+        seed=seed,
+        inner_patch_size=tuple(plan.patch_size),
+        pin_memory=pin,
+    )
+    val_loader = PatchLoader(
+        [by_id[c] for c in val_ids] or [by_id[c] for c in train_ids],
+        patch_size=tuple(plan.patch_size),
+        batch_size=batch_size,
+        oversample_foreground_percent=oversample,
+        max_instances=plan.max_instances_per_patch,
+        seed=seed + 1,
+        fixed_sequence=True,
+        pin_memory=pin,
+    )
+    return train_loader, val_loader
 
 
 def predict_dir(

@@ -23,6 +23,13 @@ masked(add_decayed_weights), sgd(schedule, momentum, nesterov)))``.
 
 PyTorch updates the model in place: :class:`TrainState` holds the model and
 the optimizer, and the epoch functions return the state they were given.
+
+Batches are prepared (``images``, ``gt_boxes``, ``gt_classes``,
+``gt_mask``, ``seg``) or raw, as the host loaders make them (``images``,
+``seg_instances``, ``instance_classes``). With an ``augment_cfg`` a raw
+batch is augmented on the device in training, centre-cropped to the patch
+in validation, then turned into targets; a prepared batch passes
+unchanged.
 """
 from __future__ import annotations
 
@@ -37,6 +44,8 @@ import numpy as np
 import torch
 
 from nndetection_tpu_torch import resolve_device
+from nndetection_tpu_torch.data.augment import AugmentConfig, augment_batch, center_crop_batch
+from nndetection_tpu_torch.data.gt_prep import prepare_targets
 from nndetection_tpu_torch.models.conv import Conv, ConvTranspose
 from nndetection_tpu_torch.models.retina_unet import (
     RetinaUNet,
@@ -137,17 +146,17 @@ class Trainer:
         trainer_cfg: TrainerConfig,
         device: Union[torch.device, str] = "cuda",
         output_dir: Optional[Path] = None,
-        augment_cfg: Any = None,
+        augment_cfg: Optional[AugmentConfig] = None,
     ):
         """Batches carry ``images [B, *patch, C]``, ``gt_boxes``,
         ``gt_classes``, ``gt_mask`` and ``seg``
         (:func:`nndetection_tpu_torch.data.gt_prep.prepare_targets` makes
-        them from instance segmentations). ``device`` is the card unless the
-        caller passes another (``"cpu"``); without CUDA the default raises."""
-        if augment_cfg is not None:
-            raise NotImplementedError(
-                "on-device augmentation is not ported yet (ROADMAP.md, queue 1 item 4)")
+        them from instance segmentations), or, with ``augment_cfg``, they
+        may be raw loader batches (:meth:`_prepare`). ``device`` is the card
+        unless the caller passes another (``"cpu"``); without CUDA the
+        default raises."""
         self.cfg = model_cfg
+        self.augment_cfg = augment_cfg
         self.tcfg = trainer_cfg
         self.device = resolve_device(device)
         self.output_dir = Path(output_dir) if output_dir else None
@@ -171,7 +180,23 @@ class Trainer:
         return TrainState(model=model, optimizer=optimizer, swa_params=swa)
 
     def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                for k, v in batch.items()}
+
+    def _prepare(self, batch: Dict[str, torch.Tensor], generator: torch.Generator,
+                 train: bool) -> Dict[str, torch.Tensor]:
+        """A raw batch on the device -> the training batch: augmented with
+        draws from ``generator`` in training, centre-cropped to the patch in
+        validation, then :func:`prepare_targets`. A batch with ``gt_boxes``,
+        or any batch without an ``augment_cfg``, passes unchanged."""
+        if self.augment_cfg is None or "gt_boxes" in batch:
+            return batch
+        data, seg = batch["images"], batch["seg_instances"]
+        if train:
+            data, seg = augment_batch(generator, data, seg, self.augment_cfg)
+        elif tuple(seg.shape[1:]) != tuple(self.cfg.patch_size):
+            data, seg = center_crop_batch(data, seg, self.cfg.patch_size)
+        return prepare_targets(data, seg, batch["instance_classes"])
 
     def _losses(self, model, batch, generator) -> Dict[str, torch.Tensor]:
         preds = model(batch["images"])
@@ -204,9 +229,11 @@ class Trainer:
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
         """One forward, backward and update on a batch already on the
-        device; returns the losses as device scalars."""
+        device; returns the losses as device scalars. A raw batch takes its
+        augmentation draws from ``generator`` before the loss's sampler."""
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
+        batch = self._prepare(batch, generator, train=True)
         losses = self._losses(state.model, batch, generator)
         losses["total"].backward()
         self._apply_update(state)
@@ -250,7 +277,7 @@ class Trainer:
         state.model.eval()
         metrics: Dict[str, List[torch.Tensor]] = {}
         for batch in batches:
-            batch = self._to_device(batch)
+            batch = self._prepare(self._to_device(batch), generator, train=False)
             preds = state.model(batch["images"])
             losses = train_step_loss(self.cfg, preds, self.anchors, self.anchors_per_level,
                                      batch, generator)

@@ -1,5 +1,5 @@
-"""The PyTorch port imports without JAX, flax, scikit-learn or the JAX
-package, and no file of it imports them; its host library is built from its
+"""The PyTorch port imports without JAX, flax, scikit-learn, ml_dtypes or the
+JAX package, and no file of it imports them; its host library is built from its
 own source."""
 import re
 import subprocess
@@ -24,8 +24,11 @@ SLICE_MODULES = [
     "nndetection_tpu_torch.core.boxes.sampler",
     "nndetection_tpu_torch.core.boxes.wbc",
     "nndetection_tpu_torch.data",
+    "nndetection_tpu_torch.data.aug_presets",
+    "nndetection_tpu_torch.data.augment",
     "nndetection_tpu_torch.data.gt_prep",
     "nndetection_tpu_torch.data.instances",
+    "nndetection_tpu_torch.data.loader",
     "nndetection_tpu_torch.data.patching",
     "nndetection_tpu_torch.data.resample",
     "nndetection_tpu_torch.evaluator",
@@ -82,12 +85,12 @@ def test_imports_with_jax_and_flax_blocked():
     code = (
         "import sys\n"
         "for name in ('jax', 'jax.numpy', 'flax', 'flax.linen', 'triton', 'sklearn',\n"
-        "             'sklearn.metrics', 'nndetection_tpu'):\n"
+        "             'sklearn.metrics', 'ml_dtypes', 'nndetection_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "assert not any(k in ('jax', 'sklearn', 'nndetection_tpu') "
+        "assert not any(k in ('jax', 'sklearn', 'ml_dtypes', 'nndetection_tpu') "
         "or k.startswith(('jax.', 'flax', 'sklearn.', 'nndetection_tpu.')) "
         "for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
@@ -99,8 +102,9 @@ def test_imports_with_jax_and_flax_blocked():
 
 
 def test_no_source_imports_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|jaxlib|optax|nndetection_tpu|sklearn)\b",
-                         re.M)
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|flax|jaxlib|optax|ml_dtypes|nndetection_tpu|sklearn)\b",
+        re.M)
     offenders = [str(p) for p in PKG.rglob("*.py") if pattern.search(p.read_text())]
     assert offenders == []
 
