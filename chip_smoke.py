@@ -84,19 +84,35 @@ Phases, each printing its findings:
 12. train_aug: the fed training path on the LUNA plan at batch 8 (two
    classes): 4 seeded cases 224x288x288 on disk in the loader's format,
    ``make_splits`` and ``build_loaders`` (fold 0, ``base_more``, generator
-   patch 211x250x250, pinned host batches), ``Trainer(augment_cfg=...)``,
-   2 fed warm-up steps, then ``fit`` over 6 fed steps and a validation
-   epoch of 2 batches with ``BoxEvaluator``, both through
-   ``PrefetchIterator``; the launch counts are reset just before and all
-   four instance-norm kernels must have run; every loss finite, parameters
-   changed, ``model_last.ckpt`` written. Beside it: s/step and patches/s
-   next to phase 7's, the host ms of one ``generate_batch``, the host ->
-   card ms of one batch, the card ms of ``augment_batch``, the card's idle
-   share over 6 fed steps under ``torch.profiler``, peak memory, and one
-   batch's draws made on the card and applied on the card and on the CPU
-   (images within 1e-4; seg equal but at voxels whose source coordinate
-   lies within 1e-4 of a half, counted);
-13. serve fused and train fused: phases 6 (the 140x320x320 case) and 7 under
+   patch 211x250x250), ``Trainer(augment_cfg=...)`` fed twice: by the host
+   loader (``device_pool=False``, pinned host batches) and by the device
+   patch pool (the default on the card); each run 2 fed warm-up steps, then
+   ``fit`` over 6 fed steps and a validation epoch of 2 batches with
+   ``BoxEvaluator``, both through ``PrefetchIterator``, then 6 fed steps
+   under ``torch.profiler`` for the card's idle share; the launch counts are
+   reset just before each run and all four instance-norm kernels must have
+   run; every loss finite, parameters changed, ``model_last.ckpt`` written.
+   Beside them: s/step and patches/s next to phase 7's, peak memory; the
+   host loader's ms per ``generate_batch``, host -> card ms, the card ms of
+   ``augment_batch``; the pool's fill time, ``pool_bytes()``, host ms of
+   one ``generate_batch`` and the card ms of its cut beside the bytes
+   bound; and one batch's draws made on the card and applied on the card
+   and on the CPU (images within 1e-4; seg equal but at voxels whose source
+   coordinate lies within 1e-4 of a half, counted);
+13. run_train: a task directory as the JAX ``run_prep`` leaves it
+   (``dataset.yaml`` with two labels, the port's ``Plan`` of the LUNA plan,
+   8 seeded 224x288x288 cases as ``.npz``, ``.npy`` and ``_boxes.pkl``),
+   trained by ``run_train`` (fold 0, ``RetinaUNetV001``, ``base_more``, one
+   epoch, 2 validation batches, no SWA) twice: (a) at the default pool
+   budget, every train case resident, 6 fed steps; (b) with
+   ``NNDET_POOL_BYTES`` at 3 cases, 16 fed steps, the others rotating in,
+   the whole call under ``torch.profiler``; the launch counts are reset just
+   before each; ``plan.pkl``, ``model_last.ckpt``, ``metrics.jsonl``,
+   ``params.json`` and ``run_meta.json`` written, losses finite, parameters
+   changed, #1-#4 and #7 launched, and (b)'s ``pool_*`` metrics in
+   ``metrics.jsonl`` with ``pool_coverage`` 1.0; s/step, patches/s, idle
+   share, pool report, peak memory, and PyYAML's version;
+14. serve fused and train fused: phases 6 (the 140x320x320 case) and 7 under
    ``NNDET_CONV_FUSED=1``, restored after; #5 must launch 7 times per model
    forward (both convs of stage 0, the second of stages 1-5), so 14 times
    per train step with remat, beside the other kernels.
@@ -104,7 +120,8 @@ Phases, each printing its findings:
 Then one JSON line with each kernel's route, source, launches in the phase
 that drives it (serve for NMS, train fused for #5, train for the instance
 norm, consolidate for the cluster kernel, NMS mask for #8 and the
-keep-scan; #6, which no path launches, in the kernels phase), max error,
+keep-scan; #6, which no path launches, in the kernels phase; and each
+kernel's launches in run_train (a) as ``run_train_launches``), max error,
 times and bound, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
 non-zero and no result line is printed.
@@ -116,7 +133,7 @@ runs only the phases named (of ``build``, ``kernels``, ``conv``, ``norm``,
 ``nms`` and ``wbc`` (#5's, #1's, #7's and the cluster kernel's checks
 alone), ``reference``, ``forward``, ``serve``, ``consolidate``,
 ``nms_mask``, ``sweep``, ``deploy``, ``train``, ``train_aug``,
-``serve_fused``, ``train_fused``); the
+``run_train``, ``serve_fused``, ``train_fused``); the
 device phase always runs, the ``kernels`` JSON line only when every phase
 it reads ran. With no argument every phase but ``conv``, ``norm``, ``nms``
 and ``wbc`` runs (``kernels`` holds them).
@@ -2112,15 +2129,104 @@ def augment_card_vs_cpu(device, raw, cfg, seed=123) -> dict:
                 halves=int(halves.sum()), voxels=s_cpu.numel(), fired=fired, cpu_s=cpu_s)
 
 
+def fed_run(label, trainer, train_loader, val_loader, warmup, steps, val_batches, classes):
+    """A fresh state from seed 0: ``warmup`` fed steps, then ``fit`` over one
+    epoch of ``steps`` fed steps and ``val_batches`` validation batches with
+    ``BoxEvaluator``, both sides through ``PrefetchIterator``; then
+    ``steps`` more fed steps under ``torch.profiler`` for the idle share.
+    The launch counts and the peak memory cover the warm-up and the fit."""
+    from nndetection_tpu_torch.data.loader import PrefetchIterator
+    from nndetection_tpu_torch.evaluator.det import BoxEvaluator
+    from nndetection_tpu_torch.ops import LAUNCHES
+
+    state = trainer.init_state(rng_seed=0)
+    before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    state, m_warm = trainer.train_epoch(
+        state, PrefetchIterator(train_loader.epoch(warmup), depth=2), 0)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    peak_train = torch.cuda.max_memory_allocated() / 2 ** 30
+    logs = []
+    state = trainer.fit(
+        train_iter_fn=lambda e: PrefetchIterator(train_loader.epoch(steps), depth=2),
+        val_iter_fn=lambda e: PrefetchIterator(val_loader.epoch(val_batches), depth=2),
+        evaluator_fn=lambda: BoxEvaluator.create(classes),
+        log_fn=lambda e, m: logs.append(m), state=state)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (trainer.output_dir / "model_last.ckpt").exists():
+        raise AssertionError(f"{label}: fit wrote no model_last.ckpt")
+    wall, busy = busy_share(lambda: trainer.train_epoch(
+        state, PrefetchIterator(train_loader.epoch(steps), depth=2), 1))
+
+    missing = [k for k in TRAIN_KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched on the main path: {missing}")
+    (m,) = logs
+    for metrics in (m_warm, m):
+        bad = [k for k, v in metrics.items()
+               if k.startswith(("train_", "val_")) and not np.isfinite(v)]
+        if bad or metrics["train_nonfinite_steps"]:
+            raise AssertionError(f"{label}: non-finite losses {bad}")
+    changed = sum(not torch.equal(p, before[n]) for n, p in state.model.named_parameters())
+    if changed == 0:
+        raise AssertionError(f"{label}: no parameter changed")
+    s_per_step = m["epoch_time_s"] / m["steps"]
+    return dict(launches=launches, s_per_step=s_per_step,
+                patches_per_s=train_loader.batch_size / s_per_step, peak_train=peak_train,
+                peak_gib=peak, t_warm=t_warm, m=m, wall=wall, busy=busy,
+                idle=1 - busy / wall, changed=changed, tensors=len(before))
+
+
+def fed_line(r) -> str:
+    m = r["m"]
+    return (f"first fed steps {r['t_warm']:.2f} s; {m['steps']} fed steps "
+            f"{m['epoch_time_s']:.3f} s = {r['s_per_step']:.4f} s/step, "
+            f"{r['patches_per_s']:.2f} patches/s; idle share {100 * r['idle']:.1f} % over "
+            f"{m['steps']} profiled fed steps (wall {r['wall']:.3f} s, card busy "
+            f"{r['busy']:.3f} s); peak device memory {r['peak_train']:.2f} GiB over the "
+            f"warm-up, {r['peak_gib']:.2f} GiB with the fit; losses "
+            + ", ".join(f"{k} {m['train_' + k]:.4f}" for k in ("cls", "reg", "seg_ce", "seg_dice"))
+            + f"; num_pos {m['train_num_pos']:.1f}; val cls {m['val_cls']:.4f}; "
+            f"{r['changed']}/{r['tensors']} parameter tensors changed")
+
+
+def pool_costs(device, pool) -> dict:
+    """The pool's own costs, after its fed runs: host ms of one
+    ``generate_batch`` (the draws and the cut's launches, no sync), the
+    card ms of the cut (CUDA events) beside its bytes bound (the batch read
+    once and written once)."""
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        raw = pool.generate_batch()
+        host.append(1e3 * (time.perf_counter() - t0))
+    rng = np.random.RandomState(5)
+    idx = rng.randint(len(pool._pool_slots), size=pool.batch_size).tolist()
+    hi = np.asarray(pool.max_shape) - np.asarray(pool.patch_size)
+    origins = np.stack([rng.randint(0, h + 1, pool.batch_size) for h in hi], 1)
+    cut_ms = median_ms(lambda: pool.gather(idx, origins), reps=10, warmup=2)
+    batch_bytes = nbytes(raw["images"], raw["seg_instances"])
+    return dict(host_ms=statistics.median(host), host_all=host, cut_ms=cut_ms,
+                batch_mib=batch_bytes / 2 ** 20,
+                cut_bound_ms=bound(2 * batch_bytes, 0, 1.0)["bound_ms"])
+
+
 def phase_train_aug(device, prepared=None, shape=TRAIN_AUG_CASE_SHAPE, n_cases=4, batch=8,
                     warmup=2, steps=6, val_batches=2) -> dict:
     """The body of the JAX ``run_train`` after the plan, on the LUNA plan at
     batch 8: seeded cases on disk, ``make_splits`` and ``build_loaders``
-    (fold 0, ``base_more``), then ``Trainer(augment_cfg=...)``: ``warmup``
-    fed steps, then ``fit`` over one epoch of ``steps`` fed steps and a
-    validation epoch of ``val_batches`` with ``BoxEvaluator``, both sides
-    through ``PrefetchIterator``. The launch counts cover the warm-up and
-    the fit. ``prepared``: the prepared-batch train phase of this run."""
+    (fold 0, ``base_more``), then ``Trainer(augment_cfg=...)`` fed twice in
+    this call (:func:`fed_run`): by the host loader (``device_pool=False``)
+    and by the device patch pool (the default on the card). ``prepared``:
+    the prepared-batch train phase of this run. Returns the pool run's
+    launch counts."""
     import dataclasses
     import tempfile
     from pathlib import Path
@@ -2128,14 +2234,12 @@ def phase_train_aug(device, prepared=None, shape=TRAIN_AUG_CASE_SHAPE, n_cases=4
 
     from nndetection_tpu_torch.data.aug_presets import get_augmentation
     from nndetection_tpu_torch.data.augment import augment_batch
-    from nndetection_tpu_torch.data.loader import PatchLoader, PrefetchIterator
-    from nndetection_tpu_torch.evaluator.det import BoxEvaluator
-    from nndetection_tpu_torch.ops import LAUNCHES
+    from nndetection_tpu_torch.data.loader import DevicePatchPool, PatchLoader
     from nndetection_tpu_torch.pipeline import build_loaders, make_splits
     from nndetection_tpu_torch.train.trainer import Trainer, TrainerConfig
 
     cfg = dataclasses.replace(luna_cfg(), classifier_classes=2, seg_classes=2)
-    plan = SimpleNamespace(patch_size=cfg.patch_size, max_instances_per_patch=32)
+    plan = SimpleNamespace(patch_size=cfg.patch_size, max_instances_per_patch=32, in_channels=1)
     aug = get_augmentation("base_more", cfg.patch_size)
     tcfg = TrainerConfig(batch_size=batch, warm_iterations=10, max_epochs=1,
                          num_train_batches_per_epoch=steps,
@@ -2147,7 +2251,9 @@ def phase_train_aug(device, prepared=None, shape=TRAIN_AUG_CASE_SHAPE, n_cases=4
         t_write = time.perf_counter() - t0
         splits = make_splits(ids, tmp / "splits_final.pkl")
         train_loader, val_loader = build_loaders(plan, tmp / "imagesTr", splits, 0, batch,
-                                                 aug_cfg=aug, device=device)
+                                                 aug_cfg=aug, device_pool=False, device=device)
+        if type(train_loader) is not PatchLoader:
+            raise AssertionError(f"train_aug: device_pool=False gave {type(train_loader)}")
         # the host's and the copy's costs, on a twin of the train loader (the
         # fit's sequence stays untouched)
         twin = PatchLoader(train_loader.records, train_loader.patch_size, batch,
@@ -2169,75 +2275,223 @@ def phase_train_aug(device, prepared=None, shape=TRAIN_AUG_CASE_SHAPE, n_cases=4
         del images, seg
         check = augment_card_vs_cpu(device, raw, aug)
 
-        trainer = Trainer(cfg, tcfg, device, output_dir=tmp / "fold0", augment_cfg=aug)
-        state = trainer.init_state(rng_seed=0)
-        before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        LAUNCHES.clear()
-        t0 = time.perf_counter()
-        state, m_warm = trainer.train_epoch(
-            state, PrefetchIterator(train_loader.epoch(warmup), depth=2), 0)
-        torch.cuda.synchronize()
-        t_warm = time.perf_counter() - t0
-        peak_train = torch.cuda.max_memory_allocated() / 2 ** 30
-        logs = []
-        state = trainer.fit(
-            train_iter_fn=lambda e: PrefetchIterator(train_loader.epoch(steps), depth=2),
-            val_iter_fn=lambda e: PrefetchIterator(val_loader.epoch(val_batches), depth=2),
-            evaluator_fn=lambda: BoxEvaluator.create(["c0", "c1"]),
-            log_fn=lambda e, m: logs.append(m), state=state)
-        torch.cuda.synchronize()
-        launches = dict(LAUNCHES)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        if not (tmp / "fold0" / "model_last.ckpt").exists():
-            raise AssertionError("train_aug: fit wrote no model_last.ckpt")
-        wall, busy = busy_share(lambda: trainer.train_epoch(
-            state, PrefetchIterator(train_loader.epoch(steps), depth=2), 1))
+        trainer = Trainer(cfg, tcfg, device, output_dir=tmp / "fold0_host", augment_cfg=aug)
+        hosted = fed_run("train_aug host loader", trainer, train_loader, val_loader, warmup,
+                         steps, val_batches, ["c0", "c1"])
+        del train_loader
 
-    missing = [k for k in TRAIN_KERNELS if launches.get(k, 0) == 0]
-    if missing:
-        raise AssertionError(f"train_aug: kernels never launched on the main path: {missing}")
-    (m,) = logs
-    for metrics in (m_warm, m):
-        bad = [k for k, v in metrics.items()
-               if k.startswith(("train_", "val_")) and not np.isfinite(v)]
-        if bad or metrics["train_nonfinite_steps"]:
-            raise AssertionError(f"train_aug: non-finite losses {bad}")
-    changed = sum(not torch.equal(p, before[n]) for n, p in state.model.named_parameters())
-    if changed == 0:
-        raise AssertionError("train_aug: no parameter changed")
-    s_per_step = m["epoch_time_s"] / m["steps"]
-    patches = batch / s_per_step
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        pool, val_loader = build_loaders(plan, tmp / "imagesTr", splits, 0, batch, aug_cfg=aug,
+                                         device=device)
+        torch.cuda.synchronize()
+        t_fill = time.perf_counter() - t0
+        if type(pool) is not DevicePatchPool or pool.device != torch.device(device):
+            raise AssertionError(f"train_aug: build_loaders on the card gave {type(pool)}")
+        pool_mem = torch.cuda.memory_allocated() - base_mem
+        trainer = Trainer(cfg, tcfg, device, output_dir=tmp / "fold0_pool", augment_cfg=aug)
+        pooled = fed_run("train_aug device pool", trainer, pool, val_loader, warmup, steps,
+                         val_batches, ["c0", "c1"])
+        costs = pool_costs(device, pool)
+        report = pool.sampling_report()
+
     beside = ("" if prepared is None else
-              f" (prepared batches in this run: {prepared['s_per_step']:.4f} s/step, "
-              f"{prepared['patches_per_s']:.2f} patches/s)")
+              f"; prepared batches in this run: {prepared['s_per_step']:.4f} s/step, "
+              f"{prepared['patches_per_s']:.2f} patches/s")
     log(f"[train_aug] LUNA plan patch {cfg.patch_size} batch {batch} {cfg.dtype} remat={cfg.remat}, "
-        f"2 classes, base_more, generator patch {train_loader.patch_size}; {n_cases} cases "
-        f"{shape} written in {t_write:.2f} s ({len(train_loader.records)} train, "
-        f"{len(val_loader.records)} val); first {warmup} fed steps {t_warm:.2f} s; {m['steps']} "
-        f"fed steps {m['epoch_time_s']:.3f} s = {s_per_step:.4f} s/step, {patches:.2f} "
-        f"patches/s{beside}; peak device memory {peak_train:.2f} GiB over the warm-up "
-        f"steps, {peak:.2f} GiB with the fit and its validation; losses "
-        + ", ".join(f"{k} {m['train_' + k]:.4f}" for k in ("cls", "reg", "seg_ce", "seg_dice"))
-        + f"; num_pos {m['train_num_pos']:.1f}; val {val_batches} batches: cls "
-        f"{m['val_cls']:.4f}, {tcfg.monitor_key} {m.get(tcfg.monitor_key, float('nan')):.4f}; "
-        f"{changed}/{len(before)} parameter tensors changed; model_last.ckpt written")
-    log(f"[train_aug] host generate_batch, median of 3 ({batch_mib:.1f} MiB a batch): "
+        f"2 classes, base_more, generator patch {pool.patch_size}; {n_cases} cases "
+        f"{shape} written in {t_write:.2f} s ({len(pool.records)} train, "
+        f"{len(val_loader.records)} val)")
+    log(f"[train_aug] host loader (device_pool=False): {fed_line(hosted)}")
+    log(f"[train_aug] device pool: {fed_line(pooled)}")
+    log(f"[train_aug] fed s/step in this run: device pool {pooled['s_per_step']:.4f} "
+        f"({pooled['patches_per_s']:.2f} patches/s, idle {100 * pooled['idle']:.1f} %), host "
+        f"loader {hosted['s_per_step']:.4f} ({hosted['patches_per_s']:.2f} patches/s, idle "
+        f"{100 * hosted['idle']:.1f} %){beside}")
+    log(f"[train_aug] pool: {len(pool._pool_slots)} cases of max_shape {pool.max_shape}, "
+        f"pool_bytes {pool.pool_bytes()} ({pool.pool_bytes() / 2 ** 20:.1f} MiB; "
+        f"{pool_mem / 2 ** 20:.1f} MiB allocated), filled in {t_fill:.3f} s with the val "
+        f"loader; generate_batch on the host {costs['host_ms']:.3f} ms (median of 5: "
+        + ", ".join(f"{t:.3f}" for t in costs["host_all"])
+        + f"); the cut on the card {costs['cut_ms']:.4f} ms for {costs['batch_mib']:.1f} MiB "
+        f"(bound {costs['cut_bound_ms']:.4f} ms, bytes read and written once); report {report}")
+    log(f"[train_aug] host loader costs: generate_batch, median of 3 ({batch_mib:.1f} MiB a "
+        "batch): "
         + "; ".join(f"pinned {pin}: {statistics.median(v):.1f} ms ("
                     + ", ".join(f"{t:.1f}" for t in v) + ")" for pin, v in host.items())
         + f"; host -> card {h2d_ms:.3f} ms per batch (pinned {twin.pin_memory}); "
-        f"augment_batch {aug_ms:.3f} ms per batch on the card; "
-        f"{steps} fed steps under the profiler: wall {wall:.3f} s, card busy {busy:.3f} s, idle "
-        f"share {100 * (1 - busy / wall):.1f} %")
+        f"augment_batch {aug_ms:.3f} ms per batch on the card")
     log(f"[train_aug] card vs CPU augmentation (the card's draws): images max abs err "
         f"{check['max_abs_err']:.2e} (atol {AUG_CARD_CPU_ATOL}); seg voxels that differ "
         f"{check['seg_differ']} of {check['voxels']} (allowed within {SEG_ROUNDING_MARGIN} of "
         f"a half: {check['near']} voxels sample there, {check['halves']} of them at exact "
         f"halves); transforms fired {check['fired']}; "
         f"apply_augment on the CPU {check['cpu_s']:.2f} s")
-    log(f"[train_aug] kernel launches during train_aug: {launches}")
-    return dict(launches=launches, s_per_step=s_per_step, patches_per_s=patches, peak_gib=peak)
+    log(f"[train_aug] kernel launches: host loader {hosted['launches']}; device pool "
+        f"{pooled['launches']}")
+    return dict(launches=pooled["launches"], s_per_step=pooled["s_per_step"],
+                patches_per_s=pooled["patches_per_s"], peak_gib=pooled["peak_gib"],
+                host=hosted, pool=pooled, pool_costs=costs)
+
+
+# the run_train phase: a task directory as the JAX package's run_prep leaves
+# it, trained through the port's entry point
+RUN_TRAIN_CASES = 8
+RUN_TRAIN_KERNELS = TRAIN_KERNELS + ("nms_topk",)
+
+
+def luna_plan(batch=8):
+    """The port's ``Plan`` of the LUNA plan of :func:`luna_cfg` (two
+    classes, 32 GT slots a patch, remat)."""
+    from nndetection_tpu_torch.planning.planner import Plan
+
+    cfg = luna_cfg()
+    anchors = {k: [list(a) for a in getattr(cfg, f"anchor_{k}")]
+               for k in ("width", "height", "depth")}
+    return Plan(
+        plan_id="D3V001_3d", dim=3, target_spacing=[1.0, 1.0, 1.0], transpose_forward=[0, 1, 2],
+        normalization_schemes=["CT"], intensity_properties={}, use_nonzero_mask=False,
+        patch_size=list(cfg.patch_size), batch_size=batch,
+        conv_kernels=[list(k) for k in cfg.conv_kernels],
+        pool_strides=[list(s) for s in cfg.strides], decoder_levels=tuple(cfg.decoder_levels),
+        anchors=anchors, in_channels=1, num_classes=2, seg_classes=2,
+        start_channels=cfg.start_channels, max_channels=cfg.max_channels,
+        fpn_channels=cfg.fpn_channels, head_channels=cfg.head_channels,
+        max_instances_per_patch=32, remat=True)
+
+
+def write_task(task_dir, n_cases=RUN_TRAIN_CASES, shape=TRAIN_AUG_CASE_SHAPE) -> None:
+    """A task directory as ``run_prep`` leaves it: ``dataset.yaml`` (two
+    labels), ``preprocessed/D3V001_3d.pkl`` and the seeded cases under
+    ``preprocessed/D3V001_3d/imagesTr`` as ``.npz`` (``data``), ``.npy``
+    and ``_boxes.pkl``."""
+    from nndetection_tpu_torch.utils.io import save_pickle, save_yaml
+
+    save_yaml({"task": task_dir.name, "name": "LunaPlan", "dim": 3, "target_class": None,
+               "test_labels": True, "labels": {"0": "c0", "1": "c1"},
+               "modalities": {"0": "CT"}}, task_dir / "dataset.yaml")
+    plan = luna_plan()
+    save_pickle(plan, task_dir / "preprocessed" / f"{plan.plan_id}.pkl")
+    image_dir = task_dir / "preprocessed" / plan.plan_id / "imagesTr"
+    for cid in write_train_cases(image_dir, n_cases, shape, seed=1):
+        np.savez(image_dir / f"{cid}.npz", data=np.load(image_dir / f"{cid}.npy", mmap_mode="r"))
+
+
+def run_train_once(device, task_dir, model_dir, steps, val_batches, profiled=False) -> dict:
+    """``run_train`` for fold 0, one epoch of ``steps`` fed steps and
+    ``val_batches`` validation batches, no SWA, with the launch counts reset
+    just before; then its files, losses, parameters and launches checked."""
+    from nndetection_tpu_torch.models.retina_unet import RetinaUNet
+    from nndetection_tpu_torch.modules import RetinaUNetV001
+    from nndetection_tpu_torch.ops import LAUNCHES
+    from nndetection_tpu_torch.pipeline import run_train
+    from nndetection_tpu_torch.planning.planner import load_plan
+    from nndetection_tpu_torch.train.trainer import TrainerConfig
+
+    overrides = dict(max_epochs=1, num_train_batches_per_epoch=steps,
+                     num_val_batches_per_epoch=val_batches, swa_epochs=0, warm_iterations=10)
+    logs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    call = lambda: run_train(task_dir, model_dir, fold=0, trainer_overrides=overrides,
+                             module="RetinaUNetV001", augmentation="base_more",
+                             log_fn=lambda e, m: logs.append(m), device=device)
+    t0 = time.perf_counter()
+    if profiled:
+        wall, busy = busy_share(call)
+    else:
+        call()
+        torch.cuda.synchronize()
+        wall, busy = time.perf_counter() - t0, None
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    out = model_dir / "fold0"
+    missing = [f for f in ("plan.pkl", "model_last.ckpt", "metrics.jsonl", "run_meta.json",
+                           "params.json") if not (out / f).exists()]
+    if missing:
+        raise AssertionError(f"run_train: files missing in {out}: {missing}")
+    rows = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    if len(rows) != 1 or len(logs) != 1:
+        raise AssertionError(f"run_train: {len(rows)} metrics rows for one epoch")
+    m = rows[0]
+    bad = [k for k, v in m.items() if k.startswith(("train_", "val_")) and not np.isfinite(v)]
+    if bad or m["train_nonfinite_steps"] or m["steps"] != steps:
+        raise AssertionError(f"run_train: non-finite losses {bad} or {m['steps']} steps")
+    not_run = [k for k in RUN_TRAIN_KERNELS if launches.get(k, 0) == 0]
+    if not_run:
+        raise AssertionError(f"run_train: kernels never launched on the main path: {not_run}")
+    plan = load_plan(out / "plan.pkl")
+    initial = RetinaUNet(RetinaUNetV001.model_config(plan),
+                         generator=torch.Generator().manual_seed(TrainerConfig().seed))
+    params = torch.load(out / "model_last.ckpt", map_location="cpu", weights_only=True)["params"]
+    changed = sum(not torch.equal(params[n], p) for n, p in initial.state_dict().items())
+    if changed == 0:
+        raise AssertionError("run_train: no parameter changed")
+    s_per_step = m["epoch_time_s"] / m["steps"]
+    return dict(m=m, launches=launches, peak_gib=peak, wall=wall, busy=busy,
+                s_per_step=s_per_step, patches_per_s=plan.batch_size / s_per_step,
+                changed=changed, tensors=len(params),
+                pool={k: v for k, v in m.items() if k.startswith("pool_")})
+
+
+def phase_run_train(device, n_cases=RUN_TRAIN_CASES, shape=TRAIN_AUG_CASE_SHAPE, steps=6,
+                    rotate_steps=16, val_batches=2) -> dict:
+    """``run_train`` on a task directory of ``n_cases`` seeded LUNA-scale
+    cases, fold 0, ``RetinaUNetV001`` with ``base_more``: (a) at the default
+    pool budget, every train case resident; (b) with ``NNDET_POOL_BYTES`` at
+    three cases, the others rotating in during the epoch (``rotate_steps``
+    steps, so that each is staged), under ``torch.profiler`` for the idle
+    share of the whole call. (b) must reach ``pool_coverage`` 1.0."""
+    import tempfile
+    from pathlib import Path
+
+    from nndetection_tpu_torch.data.aug_presets import get_augmentation
+    from nndetection_tpu_torch.data.augment import generator_patch_size_for
+    import yaml
+    with tempfile.TemporaryDirectory() as tmp:
+        task_dir = Path(tmp) / "Task100_LunaPlan"
+        t0 = time.perf_counter()
+        write_task(task_dir, n_cases, shape)
+        t_write = time.perf_counter() - t0
+        full = run_train_once(device, task_dir, Path(tmp) / "models_a", steps, val_batches)
+        # a pool slot: the case padded to the generator patch, bf16 + int16
+        gen_patch = generator_patch_size_for(get_augmentation("base_more",
+                                                              luna_plan().patch_size))
+        case_bytes = math.prod(max(s, g) for s, g in zip(shape, gen_patch)) * (2 * 1 + 2)
+        saved = os.environ.get("NNDET_POOL_BYTES")
+        os.environ["NNDET_POOL_BYTES"] = str(3 * case_bytes)
+        try:
+            rot = run_train_once(device, task_dir, Path(tmp) / "models_b", rotate_steps,
+                                 val_batches, profiled=True)
+        finally:
+            if saved is None:
+                os.environ.pop("NNDET_POOL_BYTES", None)
+            else:
+                os.environ["NNDET_POOL_BYTES"] = saved
+    if full["pool"].get("pool_coverage") != 1.0:
+        raise AssertionError(f"run_train (a): pool report {full['pool']}")
+    if rot["pool"].get("pool_cases") != 3.0 or rot["pool"].get("pool_coverage") != 1.0:
+        raise AssertionError(f"run_train (b): pool report {rot['pool']}, want 3 resident "
+                             "cases and coverage 1.0")
+    for label, r in (("(a) every case resident", full), ("(b) 3 resident, rotating", rot)):
+        m = r["m"]
+        idle = ("" if r["busy"] is None else
+                f"; whole call under the profiler {r['wall']:.3f} s, card busy {r['busy']:.3f} s, "
+                f"idle share {100 * (1 - r['busy'] / r['wall']):.1f} % (set-up, fill, "
+                "validation and checkpoints included)")
+        log(f"[run_train] {label}: {m['steps']} fed steps {m['epoch_time_s']:.3f} s = "
+            f"{r['s_per_step']:.4f} s/step, {r['patches_per_s']:.2f} patches/s{idle}; peak "
+            f"device memory {r['peak_gib']:.2f} GiB; losses "
+            + ", ".join(f"{k} {m['train_' + k]:.4f}" for k in ("cls", "reg", "seg_ce", "seg_dice"))
+            + f"; val cls {m['val_cls']:.4f}; {r['changed']}/{r['tensors']} parameter tensors "
+            f"changed; pool {r['pool']}")
+        log(f"[run_train] {label}: kernel launches {r['launches']}")
+    log(f"[run_train] task of {n_cases} cases {shape} written in {t_write:.2f} s; "
+        f"dataset.yaml written and read by PyYAML {yaml.__version__}")
+    return dict(launches=full["launches"], rotating=rot["launches"], full=full, rot=rot)
 
 
 def profile_train_step(trainer, state, targets, out_dir, label="train") -> None:
@@ -2267,8 +2521,8 @@ def profile_train_step(trainer, state, targets, out_dir, label="train") -> None:
 
 
 PHASES = ("build", "kernels", "conv", "norm", "nms", "wbc", "reference", "forward", "serve",
-          "consolidate", "nms_mask", "sweep", "deploy", "train", "train_aug", "serve_fused",
-          "train_fused")
+          "consolidate", "nms_mask", "sweep", "deploy", "train", "train_aug", "run_train",
+          "serve_fused", "train_fused")
 # the checks of one kernel alone, which ``kernels`` includes
 KERNEL_PHASES = ("conv", "norm", "nms", "wbc")
 
@@ -2336,6 +2590,8 @@ def main() -> None:
         launches["train"] = train["launches"]
     if "train_aug" in phases:
         launches["train aug"] = phase_train_aug(device, train)["launches"]
+    if "run_train" in phases:
+        launches["run_train"] = phase_run_train(device)["launches"]
     if "serve_fused" in phases:
         launches["serve fused"] = phase_serve_fused(device)
     if "train_fused" in phases:
@@ -2358,7 +2614,9 @@ def main() -> None:
                             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                             "shape": row["shape"],
-                            **{k: row[k] for k in ("device_ms", "host_ms") if k in row}})
+                            **{k: row[k] for k in ("device_ms", "host_ms") if k in row},
+                            **({"run_train_launches": launches["run_train"].get(name, 0)}
+                               if "run_train" in launches else {})})
         print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

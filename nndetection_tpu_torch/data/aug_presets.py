@@ -1,6 +1,6 @@
 """Augmentation presets (counterpart of :mod:`nndetection_tpu.data.aug_presets`):
 ``no_aug``, ``default``, ``base_more`` (the published default), ``more`` and
-``insane``, by name in :data:`AUGMENTATIONS`.
+``insane``, registered by name in ``AUGMENTATION_REGISTRY``.
 
 Each preset takes the plan's switches: ``dummy_2d`` (anisotropic patches,
 ``max(patch) / min(patch) > 3``) applies the 2D overwrites (in-plane
@@ -10,9 +10,10 @@ the data outside the normalization mask.
 from __future__ import annotations
 
 from dataclasses import replace
-from typing import Callable, Dict, Sequence
+from typing import Sequence
 
 from nndetection_tpu_torch.data.augment import AugmentConfig
+from nndetection_tpu_torch.utils.registry import AUGMENTATION_REGISTRY
 
 
 def _base(patch_size: Sequence[int]) -> AugmentConfig:
@@ -34,6 +35,7 @@ def _apply_plan_switches(cfg: AugmentConfig, dummy_2d: bool, mask_norm_zero: boo
     return cfg
 
 
+@AUGMENTATION_REGISTRY.register(name="no_aug")
 def no_aug(patch_size: Sequence[int], dummy_2d: bool = False,
            mask_norm_zero: bool = False) -> AugmentConfig:
     return replace(
@@ -44,6 +46,7 @@ def no_aug(patch_size: Sequence[int], dummy_2d: bool = False,
     )
 
 
+@AUGMENTATION_REGISTRY.register(name="default")
 def default(patch_size: Sequence[int], dummy_2d: bool = False,
             mask_norm_zero: bool = False) -> AugmentConfig:
     """Elastic on (p 0.2, alpha 0-900, sigma 9-13), rotation +-15 deg,
@@ -62,12 +65,14 @@ def default(patch_size: Sequence[int], dummy_2d: bool = False,
     return _apply_plan_switches(cfg, dummy_2d, mask_norm_zero)
 
 
+@AUGMENTATION_REGISTRY.register(name="base_more")
 def base_more(patch_size: Sequence[int], dummy_2d: bool = False,
               mask_norm_zero: bool = False) -> AugmentConfig:
     """The published default; elastic off."""
     return _apply_plan_switches(_base(patch_size), dummy_2d, mask_norm_zero)
 
 
+@AUGMENTATION_REGISTRY.register(name="more")
 def more(patch_size: Sequence[int], dummy_2d: bool = False,
          mask_norm_zero: bool = False) -> AugmentConfig:
     cfg = replace(
@@ -79,6 +84,7 @@ def more(patch_size: Sequence[int], dummy_2d: bool = False,
     return _apply_plan_switches(cfg, dummy_2d, mask_norm_zero)
 
 
+@AUGMENTATION_REGISTRY.register(name="insane")
 def insane(patch_size: Sequence[int], dummy_2d: bool = False,
            mask_norm_zero: bool = False) -> AugmentConfig:
     """Elastic on (alpha 0-1300, sigma 9-15)."""
@@ -94,16 +100,10 @@ def insane(patch_size: Sequence[int], dummy_2d: bool = False,
     return _apply_plan_switches(cfg, dummy_2d, mask_norm_zero)
 
 
-AUGMENTATIONS: Dict[str, Callable[..., AugmentConfig]] = {
-    "no_aug": no_aug, "default": default, "base_more": base_more, "more": more,
-    "insane": insane,
-}
-
-
 def get_augmentation(
     name: str,
     patch_size: Sequence[int],
     dummy_2d: bool = False,
     mask_norm_zero: bool = False,
 ) -> AugmentConfig:
-    return AUGMENTATIONS[name](patch_size, dummy_2d=dummy_2d, mask_norm_zero=mask_norm_zero)
+    return AUGMENTATION_REGISTRY[name](patch_size, dummy_2d=dummy_2d, mask_norm_zero=mask_norm_zero)

@@ -13,19 +13,25 @@ made on the device after augmentation
 
 The draws come from ``np.random.RandomState`` in the JAX loader's order, so
 that one seed gives both packages the same patches.
+
+:class:`DevicePatchPool` keeps the training cases resident on the device
+and cuts each patch there, as the JAX package trains on its accelerator.
 """
 from __future__ import annotations
 
+import math
 import queue as queue_mod
 import threading
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from nndetection_tpu_torch import resolve_device
 from nndetection_tpu_torch.utils.io import load_pickle
+from nndetection_tpu_torch.utils.registry import DATALOADER_REGISTRY
 
 
 @dataclass
@@ -60,6 +66,7 @@ def build_case_records(image_dir) -> List[CaseRecord]:
     return records
 
 
+@DATALOADER_REGISTRY.register(name="DataLoader3DOffset")
 class PatchLoader:
     """Fixed-length random patch sampler over a set of cases
     (``DataLoader3DOffset``); :class:`BalancedPatchLoader` samples the
@@ -179,6 +186,13 @@ class PatchLoader:
         seg = crop[-1].astype(np.int32)
         return data, seg
 
+    def _class_table(self, rec: CaseRecord) -> np.ndarray:
+        table = np.full((self.max_instances,), -1, np.int32)
+        for iid, cls in zip(rec.instance_ids, rec.classes):
+            if 1 <= iid <= self.max_instances:
+                table[iid - 1] = cls
+        return table
+
     def generate_batch(self) -> Dict[str, torch.Tensor]:
         """``images [B, *patch, C]`` bfloat16 (channel-last), ``seg_instances
         [B, *patch]`` int16 and ``instance_classes [B, max_instances]``
@@ -190,11 +204,7 @@ class PatchLoader:
             data, seg = self.sample_patch(rec, self._needs_fg(i))
             images.append(np.moveaxis(data, 0, -1))
             segs.append(seg)
-            table = np.full((self.max_instances,), -1, np.int32)
-            for iid, cls in zip(rec.instance_ids, rec.classes):
-                if 1 <= iid <= self.max_instances:
-                    table[iid - 1] = cls
-            tables.append(table)
+            tables.append(self._class_table(rec))
         # bf16 images and int16 seg: a quarter of the host -> device bytes;
         # torch rounds float32 to bfloat16 to nearest even, as ml_dtypes
         batch = {
@@ -213,6 +223,7 @@ class PatchLoader:
             yield self.generate_batch()
 
 
+@DATALOADER_REGISTRY.register(name="DataLoader3DBalanced")
 class BalancedPatchLoader(PatchLoader):
     """Class-balanced foreground sampling."""
 
@@ -221,6 +232,7 @@ class BalancedPatchLoader(PatchLoader):
         super().__init__(*args, **kwargs)
 
 
+@DATALOADER_REGISTRY.register(name="DataLoader3DFast")
 class FastPatchLoader(PatchLoader):
     """Foreground crops centred on a random voxel inside the instance box,
     without forcing the whole instance into the patch."""
@@ -237,10 +249,281 @@ class FastPatchLoader(PatchLoader):
         return np.clip(origin, 0, np.maximum(shape - patch, 0)).astype(np.int64)
 
 
-# the reference's registry names
-DataLoader3DOffset = PatchLoader
-DataLoader3DBalanced = BalancedPatchLoader
-DataLoader3DFast = FastPatchLoader
+@DATALOADER_REGISTRY.register(name="DevicePatchPool")
+class DevicePatchPool(PatchLoader):
+    """Patch sampling with the cases resident on the device (counterpart of
+    the JAX ``DevicePatchPool``).
+
+    Each case goes to the device once, as bfloat16 data ``[*max_shape, C]``
+    and int16 instance ids ``[*max_shape]``, padded at the high end to the
+    pool's common shape (data with 0, ids with -1, the outside-volume
+    marker that :func:`~nndetection_tpu_torch.data.gt_prep.prepare_targets`
+    ignores). A batch is cut on the device from a few indices per patch, so
+    a step moves no image over PCIe.
+
+    The draws are :class:`PatchLoader`'s, in its order (the case, then the
+    foreground or background origin); pool management draws from a
+    ``RandomState`` of its own and keeps the initial slots sorted, so with
+    every case resident one seed gives the batches of the host loader (but
+    for the -1 padding) and of the JAX pool.
+
+    A dataset larger than ``max_pool_cases`` keeps a subset resident and
+    rotates the others in during each epoch: a staging thread reads, pads and
+    casts the next outsider case into pinned memory while the card trains,
+    and between batches one slot is swapped at an even cadence, least-visited
+    case in, most-visited out. A swap that finds nothing staged is deferred
+    and counted (``pool_io_starved_last_epoch``); what is staged at the end
+    of the epoch is swapped in before it ends. :meth:`sampling_report` says
+    what coverage and skew that gave.
+
+    A batch is a new tensor, never a view of the pool: a later swap writes
+    the pool in place, on the same stream as the cuts, and must not change a
+    batch that waits in a prefetch queue. ``device`` is the card unless the
+    caller passes another; without CUDA the default raises, and the cases
+    never stay on the host in its place."""
+
+    def __init__(
+        self,
+        records: Sequence[CaseRecord],
+        patch_size: Sequence[int],
+        batch_size: int,
+        max_pool_cases: Optional[int] = None,
+        swap_per_epoch: int = 2,
+        num_epochs_hint: Optional[int] = None,
+        max_swap_bytes_per_epoch: int = 8 * 1024**3,
+        device: Union[torch.device, str] = "cuda",
+        **kwargs,
+    ):
+        super().__init__(records, patch_size, batch_size, **kwargs)
+        self.device = resolve_device(device)
+        self.all_records = list(self.records)
+        n_pool = min(len(self.all_records), max_pool_cases or len(self.all_records))
+        self.swap_per_epoch = swap_per_epoch if n_pool < len(self.all_records) else 0
+        self.max_shape = tuple(
+            max(max(r.shape[d] for r in self.all_records), self.patch_size[d])
+            for d in range(self.dim)
+        )
+        self.channels = np.load(self.all_records[0].npy_path, mmap_mode="r").shape[0] - 1
+        case_bytes = math.prod(self.max_shape) * (2 * self.channels + 2)
+        if self.swap_per_epoch and num_epochs_hint:
+            # every case resident at least once over the run, bounded by the
+            # per-epoch transfer budget and by the pool itself
+            needed = -(-(len(self.all_records) - n_pool) // max(num_epochs_hint, 1))
+            cap = max(1, min(max_swap_bytes_per_epoch // max(case_bytes, 1), n_pool))
+            self.swap_per_epoch = int(min(max(self.swap_per_epoch, needed), cap))
+        self.case_bytes = case_bytes
+        self.max_swap_bytes_per_epoch = max_swap_bytes_per_epoch
+        # telemetry: patches drawn per case, epochs resident per case
+        self._visits: Dict[str, int] = {r.case_id: 0 for r in self.all_records}
+        self._resident_epochs: Dict[str, int] = {r.case_id: 0 for r in self.all_records}
+        self._ever_resident: set = set()
+        self._rotations_last_epoch = 0
+        self._io_starved_last_epoch = 0
+        self._pool_slots: List[CaseRecord] = []
+        self._data_pool: Optional[torch.Tensor] = None  # [n, *max_shape, C] bf16
+        self._seg_pool: Optional[torch.Tensor] = None  # [n, *max_shape] int16
+        self._pool_rng = np.random.RandomState((kwargs.get("seed", 0) * 7919 + 13) % (2**31))
+        idx = np.sort(self._pool_rng.permutation(len(self.all_records))[:n_pool])
+        self._fill([self.all_records[i] for i in idx])
+        self.records = self._pool_slots  # the draws pick among resident cases
+
+    # -- pool management -------------------------------------------------
+    def _case_arrays(self, rec: CaseRecord) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One case padded to ``max_shape``: bfloat16 data (rounded to
+        nearest even) and int16 ids, in pinned memory when the pool is on
+        the card."""
+        arr = np.load(rec.npy_path, mmap_mode="r")
+        pin = self.device.type == "cuda"
+        region = tuple(slice(0, s) for s in rec.shape)
+        data = torch.zeros((*self.max_shape, self.channels), dtype=torch.bfloat16,
+                           pin_memory=pin)
+        data[region] = torch.from_numpy(np.moveaxis(np.array(arr[:-1], np.float32), 0, -1))
+        seg = torch.full(self.max_shape, -1, dtype=torch.int16, pin_memory=pin)
+        seg[region] = torch.from_numpy(np.asarray(arr[-1], np.float32).astype(np.int16))
+        return data, seg
+
+    def _fill(self, recs: List[CaseRecord]) -> None:
+        n = len(recs)
+        self._data_pool = torch.empty((n, *self.max_shape, self.channels),
+                                      dtype=torch.bfloat16, device=self.device)
+        self._seg_pool = torch.empty((n, *self.max_shape), dtype=torch.int16,
+                                     device=self.device)
+        for slot, rec in enumerate(recs):
+            self._put(slot, *self._case_arrays(rec))
+        self._pool_slots = list(recs)
+
+    def _put(self, slot: int, data: torch.Tensor, seg: torch.Tensor) -> None:
+        # in place, on the current stream: ordered after every cut enqueued
+        # before it, whose batches are copies
+        self._data_pool[slot].copy_(data, non_blocking=True)
+        self._seg_pool[slot].copy_(seg, non_blocking=True)
+
+    def refresh(self) -> None:
+        """Swap ``swap_per_epoch`` resident cases for outsiders, the least
+        resident (never resident first) in for the most resident out."""
+        for rec in self._pool_slots:
+            self._resident_epochs[rec.case_id] += 1
+            self._ever_resident.add(rec.case_id)
+        if not self.swap_per_epoch:
+            return
+        resident_ids = {r.case_id for r in self._pool_slots}
+        outside = [r for r in self.all_records if r.case_id not in resident_ids]
+        if not outside:
+            return
+        # least resident first; permuted first, so that ties break randomly
+        order = self._pool_rng.permutation(len(outside))
+        outside = sorted((outside[i] for i in order),
+                         key=lambda r: self._resident_epochs[r.case_id])
+        slot_order = sorted(range(len(self._pool_slots)),
+                            key=lambda s: -self._resident_epochs[self._pool_slots[s].case_id])
+        for j in range(min(self.swap_per_epoch, len(outside))):
+            slot = slot_order[j % len(slot_order)]
+            new = outside[j]
+            self._put(slot, *self._case_arrays(new))
+            self._pool_slots[slot] = new
+            self._ever_resident.add(new.case_id)
+
+    def sampling_report(self) -> Dict[str, float]:
+        """Coverage and skew of the sampling: ``pool_coverage`` is the share
+        of the dataset ever resident, ``pool_visit_cv`` the coefficient of
+        variation of the patches drawn per case."""
+        visits = np.asarray(list(self._visits.values()), np.float64)
+        mean = float(visits.mean()) if len(visits) else 0.0
+        return {
+            "pool_cases": float(len(self._pool_slots)),
+            "pool_coverage": len(self._ever_resident) / max(len(self.all_records), 1),
+            "pool_swap_per_epoch": float(self.swap_per_epoch),
+            "pool_rotations_last_epoch": float(self._rotations_last_epoch),
+            "pool_io_starved_last_epoch": float(self._io_starved_last_epoch),
+            "pool_visit_cv": float(visits.std() / mean) if mean else 0.0,
+            "pool_visit_min": float(visits.min()) if len(visits) else 0.0,
+            "pool_visit_max": float(visits.max()) if len(visits) else 0.0,
+        }
+
+    def pool_bytes(self) -> int:
+        return len(self._pool_slots) * math.prod(self.max_shape) * (2 * self.channels + 2)
+
+    # -- device cut ------------------------------------------------------
+    def gather(self, case_idx: Sequence[int], origins: np.ndarray
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``images [B, *patch, C]`` and ``seg [B, *patch]``: new tensors on
+        the pool's device, patch ``i`` cut from slot ``case_idx[i]`` at
+        ``origins[i]``. A start is taken as ``lax.dynamic_slice`` takes it:
+        a negative one counts from the end of its axis, then it is clamped
+        into ``[0, max_shape - patch]``."""
+        size = np.asarray(self.max_shape)
+        origins = np.asarray(origins, np.int64)
+        origins = np.clip(np.where(origins < 0, origins + size, origins), 0,
+                          size - np.asarray(self.patch_size))
+        cuts = [tuple(slice(int(o), int(o) + p) for o, p in zip(org, self.patch_size))
+                for org in origins]
+        data = torch.stack([self._data_pool[k][c] for k, c in zip(case_idx, cuts)])
+        seg = torch.stack([self._seg_pool[k][c] for k, c in zip(case_idx, cuts)])
+        return data, seg
+
+    def generate_batch(self) -> Dict[str, torch.Tensor]:
+        """``images`` and ``seg_instances`` on the pool's device,
+        ``instance_classes`` on the host, as :meth:`PatchLoader.generate_batch`
+        lays them out."""
+        case_idx, origins, tables = [], [], []
+        for i in range(self.batch_size):
+            # PatchLoader.generate_batch's draws, in its order
+            k = self.rng.randint(len(self.records))
+            rec = self.records[k]
+            self._visits[rec.case_id] += 1
+            use_fg = self._needs_fg(i) and len(rec.boxes) > 0
+            origins.append(self._fg_origin(rec) if use_fg else self._bg_origin(rec))
+            case_idx.append(k)
+            tables.append(self._class_table(rec))
+        data, seg = self.gather(case_idx, np.stack(origins))
+        return {"images": data, "seg_instances": seg,
+                "instance_classes": torch.from_numpy(np.stack(tables))}
+
+    # -- in-epoch rotation -------------------------------------------------
+    def _rotation_plan(self) -> List[CaseRecord]:
+        """The outsiders to rotate in this epoch, least visited first (never
+        resident ones have no visits), as many as the transfer budget
+        allows."""
+        resident_ids = {r.case_id for r in self._pool_slots}
+        outside = [r for r in self.all_records if r.case_id not in resident_ids]
+        if not outside:
+            return []
+        budget = max(1, self.max_swap_bytes_per_epoch // max(self.case_bytes, 1))
+        order = self._pool_rng.permutation(len(outside))
+        outside = sorted((outside[i] for i in order), key=lambda r: self._visits[r.case_id])
+        return outside[: min(len(outside), budget)]
+
+    def _swap_slot(self, rec: CaseRecord, data: torch.Tensor, seg: torch.Tensor) -> None:
+        # evict the most visited resident: new arrivals (fewer visits) stay
+        slot = max(range(len(self._pool_slots)),
+                   key=lambda s: self._visits[self._pool_slots[s].case_id])
+        self._put(slot, data, seg)
+        self._pool_slots[slot] = rec
+        self._ever_resident.add(rec.case_id)
+
+    def epoch(self, num_batches: int) -> Iterator[Dict[str, torch.Tensor]]:
+        for rec in self._pool_slots:
+            self._resident_epochs[rec.case_id] += 1
+            self._ever_resident.add(rec.case_id)
+        plan = self._rotation_plan() if len(self._pool_slots) < len(self.all_records) else []
+        self._rotations_last_epoch = 0
+        self._io_starved_last_epoch = 0
+        if not plan:
+            for _ in range(num_batches):
+                yield self.generate_batch()
+            return
+
+        stop = threading.Event()
+        q: queue_mod.Queue = queue_mod.Queue(maxsize=2)
+
+        def stage():
+            for rec in plan:
+                if stop.is_set():
+                    return
+                d, s = self._case_arrays(rec)
+                while not stop.is_set():
+                    try:
+                        q.put((rec, d, s), timeout=0.5)
+                        break
+                    except queue_mod.Full:
+                        continue
+
+        t = threading.Thread(target=stage, daemon=True)
+        t.start()
+        # even cadence: rotation j is due at batch (j + 1) * nb // (n + 1)
+        n_rot = len(plan)
+        due = [((j + 1) * num_batches) // (n_rot + 1) for j in range(n_rot)]
+        next_rot = 0
+        try:
+            for i in range(num_batches):
+                while next_rot < n_rot and due[next_rot] <= i:
+                    try:
+                        rec, d, s = q.get_nowait()
+                    except queue_mod.Empty:
+                        # staging lags: defer to the next batch
+                        self._io_starved_last_epoch += 1
+                        break
+                    self._swap_slot(rec, d, s)
+                    self._rotations_last_epoch += 1
+                    next_rot += 1
+                yield self.generate_batch()
+            # swap in what is staged but undelivered, so that its reads count
+            while next_rot < n_rot:
+                try:
+                    rec, d, s = q.get_nowait()
+                except queue_mod.Empty:
+                    break
+                self._swap_slot(rec, d, s)
+                self._rotations_last_epoch += 1
+                next_rot += 1
+        finally:
+            stop.set()
+            try:  # unblock a stager waiting on a full queue
+                while True:
+                    q.get_nowait()
+            except queue_mod.Empty:
+                pass
+            t.join(timeout=5.0)
 
 
 class PrefetchIterator:

@@ -33,8 +33,13 @@ def one_hot_smooth(labels: torch.Tensor, num_classes: int, smoothing: float = 0.
 
 
 def _bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Numerically stable elementwise sigmoid BCE."""
-    return logits.clamp(min=0.0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+    """Numerically stable elementwise sigmoid BCE. At a logit of exactly 0
+    (frequent in bfloat16) its gradient is JAX's: ``jnp.maximum`` splits a
+    tie in half and ``jnp.abs`` takes slope +1, where ``clamp`` passes the
+    whole gradient and ``abs`` takes slope 0."""
+    abs_logits = torch.where(logits >= 0, logits, -logits)
+    return (torch.maximum(logits, logits.new_zeros(())) - logits * targets
+            + torch.log1p(torch.exp(-abs_logits)))
 
 
 def bce_one_hot(logits: torch.Tensor, target_labels: torch.Tensor, sample_mask: torch.Tensor,

@@ -1,11 +1,12 @@
 """Stage entry points of the port (counterpart of :mod:`nndetection_tpu.pipeline`):
-the folds and loaders of training, and the prediction of a directory of
-preprocessed cases."""
+training a fold (:func:`run_train`, with its folds, loaders and patch-pool
+budget), and the prediction of a directory of preprocessed cases."""
 from __future__ import annotations
 
+import os
 import time
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -16,13 +17,20 @@ from nndetection_tpu_torch.data.augment import (
     generator_patch_size_for,
     get_generator_patch_size,
 )
-from nndetection_tpu_torch.data.loader import PatchLoader, build_case_records
+from nndetection_tpu_torch.data.loader import (
+    DevicePatchPool,
+    PatchLoader,
+    PrefetchIterator,
+    build_case_records,
+)
 from nndetection_tpu_torch.inference.predictor import ModelBundle, Predictor
 from nndetection_tpu_torch.inference.restore import restore_fmap
 from nndetection_tpu_torch.utils.io import load_pickle, save_pickle
 
 NUM_FOLDS = 5
 SPLIT_SEED = 12345
+# the device patch pool's budget unless NNDET_POOL_BYTES sets it
+DEFAULT_POOL_BYTES = 4 * 1024**3
 
 
 def make_splits(case_ids: Sequence[str], path, num_folds: int = NUM_FOLDS) -> List[Dict]:
@@ -59,25 +67,29 @@ def build_loaders(
     seed: int = 0,
     aug_cfg: Optional[AugmentConfig] = None,
     device_pool: Any = "auto",
+    pool_hbm_budget: int = DEFAULT_POOL_BYTES,
+    num_epochs_hint: Optional[int] = None,
     device: Union[torch.device, str] = "cuda",
 ):
-    """The train and validation :class:`PatchLoader` of ``fold`` (``-1``:
-    every case in both) over the cases of ``image_dir``. ``plan`` is any
-    object with ``patch_size`` and ``max_instances_per_patch``.
+    """The train and validation loaders of ``fold`` (``-1``: every case in
+    both) over the cases of ``image_dir``. ``plan`` is any object with
+    ``patch_size``, ``max_instances_per_patch`` and ``in_channels``.
 
     The train loader crops the generator patch of ``aug_cfg`` (the final
-    patch without augmentation) with the foreground constraint on the
-    final patch; the validation loader crops the final patch and replays
-    the same patches every epoch. Both are host loaders, as the JAX
-    package builds them off a TPU; ``device_pool=True`` (the JAX package's
-    TPU patch pool) is not ported. For the card (``device``, unless the
-    caller passes ``"cpu"``) the batches come in pinned memory, so that
-    their copy to the card is asynchronous."""
-    if device_pool is True:
-        raise NotImplementedError(
-            "the device patch pool is not ported (ROADMAP.md, queue 1 item 4): "
-            "the port's loaders are host loaders")
-    pin = resolve_device(device).type == "cuda"
+    patch without augmentation) with the foreground constraint on the final
+    patch. With ``device_pool`` it is a :class:`DevicePatchPool` on
+    ``device``, holding as many cases as ``pool_hbm_budget`` bytes take (at
+    least 2; the others rotate in during each epoch); ``"auto"`` takes the
+    pool on the card, as the JAX package takes it on its accelerator, and
+    ``True`` takes it on any ``device``. Otherwise it is a host
+    :class:`PatchLoader`. The validation loader is a host loader of the
+    final patch that replays the same patches every epoch. Host batches for
+    the card come in pinned memory, so that their copy is asynchronous.
+    ``device`` is the card unless the caller passes another (``"cpu"``)."""
+    dev = resolve_device(device)
+    pin = dev.type == "cuda"
+    if device_pool == "auto":
+        device_pool = dev.type == "cuda"
     records = build_case_records(image_dir)
     by_id = {r.case_id: r for r in records}
     if fold == -1:
@@ -92,18 +104,22 @@ def build_loaders(
         gen_patch = generator_patch_size_for(aug_cfg)
     else:
         gen_patch = get_generator_patch_size(plan.patch_size)
-    train_loader = PatchLoader(
-        [by_id[c] for c in train_ids],
-        patch_size=gen_patch,
-        batch_size=batch_size,
-        oversample_foreground_percent=oversample,
-        max_instances=plan.max_instances_per_patch,
-        seed=seed,
-        inner_patch_size=tuple(plan.patch_size),
-        pin_memory=pin,
-    )
+    train_records = [by_id[c] for c in train_ids]
+    common = dict(batch_size=batch_size, oversample_foreground_percent=oversample,
+                  max_instances=plan.max_instances_per_patch, seed=seed,
+                  inner_patch_size=tuple(plan.patch_size))
+    if device_pool:
+        max_shape = [max(max(r.shape[d] for r in train_records), gen_patch[d])
+                     for d in range(len(gen_patch))]
+        per_case = int(np.prod(max_shape)) * (2 * plan.in_channels + 2)
+        max_cases = max(2, int(pool_hbm_budget // max(per_case, 1)))
+        train_loader = DevicePatchPool(train_records, patch_size=gen_patch,
+                                       max_pool_cases=max_cases,
+                                       num_epochs_hint=num_epochs_hint, device=dev, **common)
+    else:
+        train_loader = PatchLoader(train_records, patch_size=gen_patch, pin_memory=pin, **common)
     val_loader = PatchLoader(
-        [by_id[c] for c in val_ids] or [by_id[c] for c in train_ids],
+        [by_id[c] for c in val_ids] or train_records,
         patch_size=tuple(plan.patch_size),
         batch_size=batch_size,
         oversample_foreground_percent=oversample,
@@ -113,6 +129,155 @@ def build_loaders(
         pin_memory=pin,
     )
     return train_loader, val_loader
+
+
+def device_memory_bytes(device: Union[torch.device, str]) -> int:
+    """The memory of ``device``: the card's, or the host's for the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return int(torch.cuda.get_device_properties(dev).total_memory)
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def pool_budget(plan: Any, batch_size: int, memory_bytes: int) -> int:
+    """Bytes the device patch pool may take: ``NNDET_POOL_BYTES`` when set,
+    else 4 GiB capped by what the planned train step leaves of
+    ``memory_bytes`` (``0.92 x memory - step - reserve``, at least 512 MiB).
+    The step's peak is ``plan.mem_compiled_bytes``, scaled up (never down)
+    to a larger batch than planned; a plan without it is not capped."""
+    if os.environ.get("NNDET_POOL_BYTES"):
+        return int(os.environ["NNDET_POOL_BYTES"])
+    budget = DEFAULT_POOL_BYTES
+    compiled = int(plan.mem_compiled_bytes or 0)
+    if compiled:
+        compiled = int(compiled * max(1.0, batch_size / max(plan.batch_size, 1)))
+        reserve = max(3 << 29, compiled // 4)
+        free = int(memory_bytes * 0.92) - compiled - reserve
+        budget = max(1 << 29, min(budget, free))
+    return budget
+
+
+def mesh_for_plan(plan: Any, batch_size: int) -> None:
+    """The port trains a plan on one card: a plan that partitions its patch
+    over devices (``n_model > 1``) raises."""
+    if plan.n_model > 1:
+        raise NotImplementedError(
+            f"plan {plan.plan_id} partitions its patch over {plan.n_model} devices; "
+            "multi-GPU training is not ported (ROADMAP.md, queue 1, multi-GPU)")
+
+
+def run_train(
+    task_dir,
+    model_dir,
+    fold: int = 0,
+    trainer_overrides: Optional[Dict[str, Any]] = None,
+    model_overrides: Optional[Dict[str, Any]] = None,
+    plan_id: str = "D3V001_3d",
+    module: str = "RetinaUNetV001",
+    augment: bool = True,
+    augmentation: str = "base_more",
+    oversample: float = 0.5,
+    log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
+    resume: bool = False,
+    stop_after_epoch: Optional[int] = None,
+    device: Union[torch.device, str] = "cuda",
+) -> Path:
+    """Train one fold of a preprocessed task into ``model_dir/fold{fold}``:
+    ``plan.pkl``, ``model_last.ckpt`` (``model_best.ckpt`` when the monitored
+    score improves), ``run_meta.json``, ``params.json`` and one
+    ``metrics.jsonl`` row per epoch, the pool's sampling report in it.
+
+    Reads ``preprocessed/{plan_id}.pkl`` (either package's plan),
+    ``dataset.yaml`` and the cases of ``preprocessed/{plan_id}/imagesTr``
+    (``*.npz`` name the cases, the loaders read the unpacked ``*.npy``). On
+    the card the train loader is the device patch pool, sized by
+    :func:`pool_budget`. ``resume=True`` continues from ``model_last.ckpt``
+    at its next epoch. ``device`` is the card unless the caller passes
+    another (``"cpu"``)."""
+    from nndetection_tpu_torch import modules  # noqa: F401 - registers the variants
+    from nndetection_tpu_torch.data.aug_presets import get_augmentation
+    from nndetection_tpu_torch.data.dataset import DatasetInfo
+    from nndetection_tpu_torch.evaluator.det import BoxEvaluator
+    from nndetection_tpu_torch.parallel import distributed
+    from nndetection_tpu_torch.planning.planner import load_plan
+    from nndetection_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from nndetection_tpu_torch.utils.registry import MODULE_REGISTRY
+    from nndetection_tpu_torch.utils.tracking import RunTracker
+
+    distributed.initialize_from_env()
+    dev = resolve_device(device)
+    task_dir, model_dir = Path(task_dir), Path(model_dir)
+    prep_dir = task_dir / "preprocessed"
+    plan = load_plan(prep_dir / f"{plan_id}.pkl")
+    info = DatasetInfo.from_file(task_dir / "dataset.yaml")
+    splits = make_splits(
+        [p.stem for p in (prep_dir / plan.plan_id / "imagesTr").glob("*.npz")],
+        prep_dir / "splits_final.pkl",
+    )
+
+    tkw = dict(trainer_overrides or {})
+    batch_size = tkw.pop("batch_size", None) or plan.batch_size
+    tcfg = TrainerConfig(batch_size=batch_size, **tkw)
+    model_cfg = MODULE_REGISTRY[module].model_config(plan, **(model_overrides or {}))
+    mesh_for_plan(plan, batch_size)
+
+    out_dir = model_dir / f"fold{fold}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    save_pickle(plan, out_dir / "plan.pkl")
+    tracker = RunTracker(
+        out_dir,
+        params={"module": module, "plan": plan_id, "fold": fold, "trainer": tkw,
+                "batch_size": batch_size},
+        tags={"task": task_dir.name},
+        device=dev,
+    )
+    aug_cfg = get_augmentation(augmentation if augment else "no_aug", tuple(plan.patch_size),
+                               dummy_2d=plan.do_dummy_2d, mask_norm_zero=plan.use_nonzero_mask)
+    trainer = Trainer(model_cfg, tcfg, device=dev, output_dir=out_dir, augment_cfg=aug_cfg)
+    train_loader, val_loader = build_loaders(
+        plan,
+        prep_dir / plan.plan_id / "imagesTr",
+        splits,
+        fold,
+        distributed.local_batch_size(batch_size),
+        oversample=oversample,
+        augment=augment,
+        seed=tcfg.seed + fold + 10007 * distributed.process_index(),
+        aug_cfg=aug_cfg if augment else None,
+        pool_hbm_budget=pool_budget(plan, batch_size, device_memory_bytes(dev)),
+        num_epochs_hint=tcfg.max_epochs + tcfg.swa_epochs,
+        device=dev,
+    )
+    classes = [str(info.labels[k]) for k in sorted(info.labels)]
+
+    def _log(epoch, metrics):
+        if hasattr(train_loader, "sampling_report"):
+            metrics = {**metrics, **train_loader.sampling_report()}
+        tracker.log_metrics(epoch, metrics)
+        if log_fn:
+            log_fn(epoch, metrics)
+
+    start_epoch, state, best_score = 0, None, -np.inf
+    last_ckpt = out_dir / "model_last.ckpt"
+    if resume and last_ckpt.exists():
+        extra = torch.load(last_ckpt, map_location="cpu", weights_only=True).get("extra", {})
+        state = trainer.load_checkpoint(last_ckpt)
+        start_epoch = int(extra.get("epoch", -1)) + 1
+        best_score = float(extra.get("best_score", -np.inf))
+
+    trainer.fit(
+        train_iter_fn=lambda e: PrefetchIterator(
+            train_loader.epoch(tcfg.num_train_batches_per_epoch), depth=2),
+        val_iter_fn=lambda e: PrefetchIterator(
+            val_loader.epoch(tcfg.num_val_batches_per_epoch), depth=2),
+        evaluator_fn=lambda: BoxEvaluator.create(classes, fast=True),
+        log_fn=_log,
+        start_epoch=start_epoch,
+        state=state,
+        best_score=best_score,
+        stop_after_epoch=stop_after_epoch,
+    )
+    return out_dir
 
 
 def predict_dir(

@@ -1,10 +1,12 @@
-"""JSON and pickle helpers (copy of the part of
-:mod:`nndetection_tpu.utils.io` that ensembler states and the sweep use)."""
+"""JSON, pickle, YAML and npz helpers (copy of
+:mod:`nndetection_tpu.utils.io`). PyYAML is imported when a YAML file is
+read or written, never when this module is imported."""
 from __future__ import annotations
 
 import json
 import os
 import pickle
+import time
 from pathlib import Path
 from typing import Any, Union
 
@@ -49,3 +51,37 @@ def save_pickle(data: Any, path: PathLike) -> None:
 def load_pickle(path: PathLike) -> Any:
     with open(path, "rb") as f:
         return pickle.load(f)
+
+
+def load_json(path: PathLike) -> Any:
+    with open(path) as f:
+        return json.load(f)
+
+
+def save_yaml(data: Any, path: PathLike) -> None:
+    import yaml
+
+    _atomic_write(Path(path), lambda f: yaml.safe_dump(data, f), "w")
+
+
+def load_yaml(path: PathLike) -> Any:
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+def load_npz_looped(path: PathLike, keys=None, num_tries: int = 3) -> dict:
+    """Retry-looped npz load, the data-integrity check of the reference's
+    preprocessing."""
+    last_err = None
+    for i in range(num_tries):
+        try:
+            with np.load(path, allow_pickle=True) as f:
+                if keys is None:
+                    return {k: f[k] for k in f.files}
+                return {k: f[k] for k in keys}
+        except Exception as e:  # noqa: BLE001 - retried, then raised
+            last_err = e
+            time.sleep(0.5 * (i + 1))
+    raise RuntimeError(f"failed to load {path} after {num_tries} tries") from last_err

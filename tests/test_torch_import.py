@@ -1,6 +1,6 @@
-"""The PyTorch port imports without JAX, flax, scikit-learn, ml_dtypes or the
-JAX package, and no file of it imports them; its host library is built from its
-own source."""
+"""The PyTorch port imports without JAX, flax, scikit-learn, ml_dtypes, PyYAML or
+the JAX package, and no file of it imports them; its host library is built from
+its own source."""
 import re
 import subprocess
 import sys
@@ -26,6 +26,7 @@ SLICE_MODULES = [
     "nndetection_tpu_torch.data",
     "nndetection_tpu_torch.data.aug_presets",
     "nndetection_tpu_torch.data.augment",
+    "nndetection_tpu_torch.data.dataset",
     "nndetection_tpu_torch.data.gt_prep",
     "nndetection_tpu_torch.data.instances",
     "nndetection_tpu_torch.data.loader",
@@ -54,6 +55,7 @@ SLICE_MODULES = [
     "nndetection_tpu_torch.models.encoder",
     "nndetection_tpu_torch.models.heads",
     "nndetection_tpu_torch.models.retina_unet",
+    "nndetection_tpu_torch.modules",
     "nndetection_tpu_torch.ops",
     "nndetection_tpu_torch.ops._build",
     "nndetection_tpu_torch.ops.conv_in_stats",
@@ -63,13 +65,19 @@ SLICE_MODULES = [
     "nndetection_tpu_torch.ops.nms",
     "nndetection_tpu_torch.ops.suppression",
     "nndetection_tpu_torch.ops.wbc_cluster",
+    "nndetection_tpu_torch.parallel",
+    "nndetection_tpu_torch.parallel.distributed",
     "nndetection_tpu_torch.pipeline",
+    "nndetection_tpu_torch.planning",
+    "nndetection_tpu_torch.planning.planner",
     "nndetection_tpu_torch.train",
     "nndetection_tpu_torch.train.lr",
     "nndetection_tpu_torch.train.trainer",
     "nndetection_tpu_torch.utils",
     "nndetection_tpu_torch.utils.analysis",
     "nndetection_tpu_torch.utils.io",
+    "nndetection_tpu_torch.utils.registry",
+    "nndetection_tpu_torch.utils.tracking",
 ]
 
 
@@ -85,12 +93,12 @@ def test_imports_with_jax_and_flax_blocked():
     code = (
         "import sys\n"
         "for name in ('jax', 'jax.numpy', 'flax', 'flax.linen', 'triton', 'sklearn',\n"
-        "             'sklearn.metrics', 'ml_dtypes', 'nndetection_tpu'):\n"
+        "             'sklearn.metrics', 'ml_dtypes', 'yaml', 'nndetection_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "assert not any(k in ('jax', 'sklearn', 'ml_dtypes', 'nndetection_tpu') "
+        "assert not any(k in ('jax', 'sklearn', 'ml_dtypes', 'yaml', 'nndetection_tpu') "
         "or k.startswith(('jax.', 'flax', 'sklearn.', 'nndetection_tpu.')) "
         "for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"

@@ -3,7 +3,8 @@ seed: case records, the three patch loaders (the same crops, the same
 bfloat16 bits, segmentation and class tables, and the same generator state
 after), validation's fixed sequence, the padding of cases smaller than the
 patch, ``PrefetchIterator`` (order, and a worker's error raised in the
-consumer), and ``make_splits`` / ``build_loaders``."""
+consumer), and ``make_splits`` / ``build_loaders`` (whose ``device_pool=True``
+builds the device patch pool, on the CPU too: ``test_torch_pool.py``)."""
 import types
 
 import numpy as np
@@ -84,7 +85,7 @@ def test_loaders_match_jax(tmp_path, kind, batch, oversample):
     kw = dict(patch_size=(24, 28, 28), batch_size=batch, oversample_foreground_percent=oversample,
               max_instances=6, seed=11, inner_patch_size=(16, 16, 16))
     jl = jloader.DATALOADER_REGISTRY[kind](jloader.build_case_records(tmp_path), **kw)
-    tl = getattr(tloader, kind)(tloader.build_case_records(tmp_path), **kw)
+    tl = tloader.DATALOADER_REGISTRY[kind](tloader.build_case_records(tmp_path), **kw)
     for g, w in zip(tl.epoch(4), jl.epoch(4)):
         assert tuple(g["images"].shape) == (batch, 24, 28, 28, 2)
         assert_same_batch(g, w)
@@ -187,6 +188,6 @@ def test_build_loaders_matches_jax(tmp_path, augment, aug):
         want_gen = TA.generator_patch_size_for(cfg) if cfg else TA.get_generator_patch_size(
             plan.patch_size)
         assert got[0].patch_size == want_gen and got[1].patch_size == plan.patch_size
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpipeline.build_loaders(plan, tmp_path / "imagesTr", splits, 0, 2, device_pool=True,
-                                device="cpu")
+    pool, _ = tpipeline.build_loaders(plan, tmp_path / "imagesTr", splits, 0, 2,
+                                      device_pool=True, device="cpu")
+    assert type(pool) is tloader.DevicePatchPool and pool.device.type == "cpu"

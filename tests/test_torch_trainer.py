@@ -321,15 +321,19 @@ def test_loss_decreases_on_fixed_batch(tmp_path):
 
 
 def test_unported_options_raise():
-    """The augmentation is ported (``test_torch_trainer_raw.py``); the JAX
-    package's TPU patch pool is not, and asking for it raises."""
+    """The augmentation is ported (``test_torch_trainer_raw.py``), and so is
+    the device patch pool (``test_torch_pool.py``); a pool asked for on a
+    card that is not there raises instead of keeping the cases on the
+    host."""
     from nndetection_tpu_torch.data.aug_presets import get_augmentation
     from nndetection_tpu_torch.pipeline import build_loaders
 
     aug = get_augmentation("base_more", torch_cfg().patch_size)
     assert Trainer(torch_cfg(), STEP_TCFG, "cpu", augment_cfg=aug).augment_cfg == aug
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_loaders(None, "unused", [], 0, 2, device_pool=True, device="cpu")
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_loaders(None, "unused", [], 0, 2, device_pool=True, device="cuda")
 
 
 # ------------------------------------------------------------- evaluation
