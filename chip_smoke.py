@@ -112,7 +112,22 @@ Phases, each printing its findings:
    changed, #1-#4 and #7 launched, and (b)'s ``pool_*`` metrics in
    ``metrics.jsonl`` with ``pool_coverage`` 1.0; s/step, patches/s, idle
    share, pool report, peak memory, and PyYAML's version;
-14. serve fused and train fused: phases 6 (the 140x320x320 case) and 7 under
+14. prep: a raw CT task (6 seeded 128x256x256 float32 cases in HU, 1-3
+   objects each, two labels, spacings (1.25, 0.70, 0.70) and (1.25, 0.80,
+   0.80) mm, ``.nii.gz``) through ``run_prep(num_workers=4)`` on the card:
+   seconds per stage (crop, analyze, plan, process, unpack), each probe
+   call of the planner (batch, remat, allocated and reserved peak, verdict,
+   ms per step), the plan; every file ``run_train`` reads, finite arrays,
+   ``mem_compiled_bytes > 0`` and the plan within the probe's budget
+   checked, and #1-#4 launched by the probe; the same properties planned on
+   the CPU at the card's budget, equal but in the fields the probe decides;
+   then ``run_train`` on the port's own plan (fold 0, ``RetinaUNetV001``,
+   ``base_more``, 6 fed steps, 2 validation batches, no SWA; the pool sized
+   from the measured peak; #1-#4 and #7 launched): s/step, patches/s, peak
+   memory beside the probe's, the pool's budget and ``pool_bytes()``; last
+   the probe at the LUNA plan, batch 8, with 8 and with 32 GT slots, beside
+   the train and train_aug phases' peaks (the fed step's peak split);
+15. serve fused and train fused: phases 6 (the 140x320x320 case) and 7 under
    ``NNDET_CONV_FUSED=1``, restored after; #5 must launch 7 times per model
    forward (both convs of stage 0, the second of stages 1-5), so 14 times
    per train step with remat, beside the other kernels.
@@ -120,8 +135,9 @@ Phases, each printing its findings:
 Then one JSON line with each kernel's route, source, launches in the phase
 that drives it (serve for NMS, train fused for #5, train for the instance
 norm, consolidate for the cluster kernel, NMS mask for #8 and the
-keep-scan; #6, which no path launches, in the kernels phase; and each
-kernel's launches in run_train (a) as ``run_train_launches``), max error,
+keep-scan; #6, which no path launches, in the kernels phase; each
+kernel's launches in run_train (a) as ``run_train_launches``, and in the
+prep phase's ``run_prep`` and ``run_train`` as ``prep_launches``), max error,
 times and bound, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
 non-zero and no result line is printed.
@@ -133,7 +149,7 @@ runs only the phases named (of ``build``, ``kernels``, ``conv``, ``norm``,
 ``nms`` and ``wbc`` (#5's, #1's, #7's and the cluster kernel's checks
 alone), ``reference``, ``forward``, ``serve``, ``consolidate``,
 ``nms_mask``, ``sweep``, ``deploy``, ``train``, ``train_aug``,
-``run_train``, ``serve_fused``, ``train_fused``); the
+``run_train``, ``prep``, ``serve_fused``, ``train_fused``); the
 device phase always runs, the ``kernels`` JSON line only when every phase
 it reads ran. With no argument every phase but ``conv``, ``norm``, ``nms``
 and ``wbc`` runs (``kernels`` holds them).
@@ -2494,6 +2510,268 @@ def phase_run_train(device, n_cases=RUN_TRAIN_CASES, shape=TRAIN_AUG_CASE_SHAPE,
     return dict(launches=full["launches"], rotating=rot["launches"], full=full, rot=rot)
 
 
+# the prep phase: a raw CT task through the port's run_prep, then trained on
+# the port's own plan
+PREP_CASES = 6
+PREP_CASE_SHAPE = (128, 256, 256)
+# (z, y, x) mm: the median, (1.25, 0.75, 0.75), resamples every case
+PREP_SPACINGS = ((1.25, 0.70, 0.70),) * 3 + ((1.25, 0.80, 0.80),) * 3
+PREP_OBJECT_SIZE = (10, 28)  # voxels, 7-22 mm at 0.75 mm
+PLAN_FILES = ("dataset.yaml", "preprocessed/D3V001_3d.pkl", "preprocessed/splits_final.pkl",
+              "preprocessed/properties/dataset_properties.pkl")
+CASE_FILES = ("imagesTr/{}.npz", "imagesTr/{}.npy", "imagesTr/{}.pkl", "imagesTr/{}_boxes.pkl",
+              "labelsTr/{}_boxes_gt.npz")
+# the fields the probe decides (the patch and what follows from it only
+# when a probe at the base batch was over budget)
+PROBE_FIELDS = ("batch_size", "remat", "mem_compiled_bytes")
+PATCH_FIELDS = ("patch_size", "pool_strides", "conv_kernels", "decoder_levels", "anchors",
+                "anchor_score", "requires_lowres")
+
+
+def write_raw_task(task_dir, n_cases=PREP_CASES, shape=PREP_CASE_SHAPE, spacings=PREP_SPACINGS,
+                   seed=0) -> None:
+    """A raw task as a user brings it (``raw_splitted`` with ``.nii.gz``
+    images, instance label maps and their json, ``dataset.yaml`` with one
+    CT modality and two labels): ``n_cases`` float32 cases in HU (``data x
+    1400 - 1000`` of ``example.generate_case``), 1-3 seeded objects each,
+    case ``i`` at ``spacings[i]``."""
+    from nndetection_tpu_torch.data import nifti
+    from nndetection_tpu_torch.data.example import generate_case
+    from nndetection_tpu_torch.utils.io import save_json, save_yaml
+
+    images = task_dir / "raw_splitted" / "imagesTr"
+    labels = task_dir / "raw_splitted" / "labelsTr"
+    images.mkdir(parents=True)
+    labels.mkdir(parents=True)
+    save_yaml({"task": task_dir.name, "name": "LunaLike", "dim": 3, "target_class": None,
+               "test_labels": True, "labels": {"0": "c0", "1": "c1"},
+               "modalities": {"0": "CT"}}, task_dir / "dataset.yaml")
+    for i in range(n_cases):
+        rng = np.random.RandomState(seed + i)
+        data, seg, instances = None, np.zeros(shape, np.uint8), {}
+        for iid in range(1, rng.randint(1, 4) + 1):
+            d, mask, cls = generate_case(rng, shape, PREP_OBJECT_SIZE, object_width=3)
+            data = d if data is None else np.where(mask > 0, d, data)
+            seg[mask > 0] = iid
+            instances[str(iid)] = int(cls)
+        hu = (data * 1400.0 - 1000.0).astype(np.float32)
+        nifti.save(images / f"case_{i}_0000.nii.gz", hu, spacing=spacings[i])
+        nifti.save(labels / f"case_{i}.nii.gz", seg, spacing=spacings[i])
+        save_json({"instances": instances}, labels / f"case_{i}.json")
+
+
+@contextlib.contextmanager
+def patched(owner, wrappers: dict):
+    """``owner``'s attributes replaced by ``wrappers[name](original)`` for
+    the block, restored after."""
+    saved = {n: getattr(owner, n) for n in wrappers}
+    for n, wrap in wrappers.items():
+        setattr(owner, n, wrap(saved[n]))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(owner, n, fn)
+
+
+def timer(seconds: dict, name: str):
+    """A wrapper that adds each call's seconds to ``seconds[name]``."""
+    def wrap(fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return timed
+    return wrap
+
+
+def capturing(results: list):
+    """A wrapper that appends each call's result to ``results``."""
+    def wrap(fn):
+        def call(*args, **kwargs):
+            results.append(fn(*args, **kwargs))
+            return results[-1]
+        return call
+    return wrap
+
+
+def probe_line(r, budget) -> str:
+    est = r["est"]
+    b = est.breakdown
+    verdict = "out of memory" if est.out_of_memory else (
+        "fits" if est.fits(budget) else "over budget")
+    return (f"batch {r['batch']} remat={r['remat']} patch {list(r['patch'])} GT slots "
+            f"{r['slots']}: allocated peak {est.total_bytes / 2 ** 30:.4f} GiB above a baseline "
+            f"of {b['baseline'] / 2 ** 30:.4f} GiB, reserved peak {b['reserved_peak'] / 2 ** 30:.4f}"
+            f" GiB; {verdict} against {budget / 2 ** 30:.4f} GiB; {b['step_ms']:.2f} ms/step "
+            f"(probe call {r['s']:.2f} s)")
+
+
+def recording_probe(calls: list):
+    """A wrapper of ``probe_train_step_estimate`` that records each call."""
+    def wrap(fn):
+        def probe(cfg, batch_size, max_instances=32, **kwargs):
+            t0 = time.perf_counter()
+            est = fn(cfg, batch_size, max_instances, **kwargs)
+            calls.append(dict(batch=batch_size, remat=cfg.remat, patch=tuple(cfg.patch_size),
+                              slots=max_instances, est=est, s=time.perf_counter() - t0))
+            return est
+        return probe
+    return wrap
+
+
+def check_prepared_task(task_dir, plan) -> int:
+    """Every file ``run_train`` reads exists and every processed array is
+    finite; returns the processed cases."""
+    from nndetection_tpu_torch.utils.io import load_pickle
+
+    prep = task_dir / "preprocessed" / plan.plan_id
+    ids = [f"case_{i}" for i in range(len(list((task_dir / "raw_splitted" / "imagesTr")
+                                                .glob("*.nii.gz"))))]
+    missing = [f for f in PLAN_FILES if not (task_dir / f).exists()]
+    missing += [f.format(c) for c in ids for f in CASE_FILES if not (prep / f.format(c)).exists()]
+    if missing:
+        raise AssertionError(f"prep: files missing: {missing}")
+    for cid in ids:
+        arr = np.load(prep / "imagesTr" / f"{cid}.npy", mmap_mode="r")
+        if arr.shape[0] != plan.in_channels + 1 or not np.isfinite(arr).all():
+            raise AssertionError(f"prep: {cid}.npy {arr.shape} not finite or wrong channels")
+        if len(load_pickle(prep / "imagesTr" / f"{cid}_boxes.pkl")["boxes"]) == 0:
+            raise AssertionError(f"prep: {cid} lost its objects")
+    return len(ids)
+
+
+def phase_prep(device, n_cases=PREP_CASES, shape=PREP_CASE_SHAPE, num_workers=4, steps=6,
+               val_batches=2, prepared=None, fed=None) -> dict:
+    """A raw CT task of ``n_cases`` seeded cases through the port's
+    ``run_prep(num_workers=4, device="cuda")`` (seconds per stage, each
+    probe call, the plan; files, finiteness, ``mem_compiled_bytes > 0`` and
+    the plan within the probe's budget checked), the same properties
+    planned on the CPU at the same budget (every field the probe does not
+    decide equal), then ``run_train`` (fold 0, ``RetinaUNetV001``,
+    ``base_more``, one epoch of ``steps``, ``val_batches`` validation
+    batches, no SWA) on the port's own plan, its pool sized from the
+    measured peak. Last, the fed step's peak split: the probe at the LUNA
+    plan, batch 8, with 8 and with 32 GT slots, beside the prepared and the
+    fed steps' peaks of this run (``prepared``, ``fed``: the train and
+    train_aug phases' results)."""
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    from nndetection_tpu_torch import pipeline
+    from nndetection_tpu_torch.data.dataset import DatasetInfo
+    from nndetection_tpu_torch.ops import LAUNCHES
+    from nndetection_tpu_torch.planning import planner as planner_mod
+    from nndetection_tpu_torch.planning.estimator import probe_train_step_estimate
+    from nndetection_tpu_torch.utils.io import load_pickle
+
+    total = pipeline.device_memory_bytes(device)
+    budget = int(total * planner_mod.BUDGET_SHARE)
+    probe_budget = int(budget * 0.92 / 0.85)  # the planner's formula
+    with tempfile.TemporaryDirectory() as tmp:
+        task_dir = Path(tmp) / "Task101_LunaLike"
+        t0 = time.perf_counter()
+        write_raw_task(task_dir, n_cases, shape)
+        t_write = time.perf_counter() - t0
+
+        seconds, probes = {}, []
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with patched(pipeline, {n: timer(seconds, n) for n in (
+                "run_cropping", "analyze_dataset", "_process_all", "unpack_dataset")}), \
+                patched(planner_mod.Planner, {"plan_experiment": timer(seconds, "plan")}), \
+                patched(planner_mod, {"probe_train_step_estimate": recording_probe(probes)}):
+            plan = pipeline.run_prep(task_dir, num_workers=num_workers, device=device)
+        t_prep = time.perf_counter() - t0
+        prep_launches = dict(LAUNCHES)
+        n_done = check_prepared_task(task_dir, plan)
+        stages = dict(crop=seconds["run_cropping"], analyze=seconds["analyze_dataset"],
+                      plan=seconds["plan"],
+                      process=seconds["_process_all"] - seconds["unpack_dataset"],
+                      unpack=seconds["unpack_dataset"])
+        log(f"[prep] raw task of {n_cases} cases {shape} float32 CT, spacings "
+            f"{sorted(set(PREP_SPACINGS[:n_cases]))} mm, written in {t_write:.2f} s; run_prep "
+            f"(num_workers={num_workers}) {t_prep:.2f} s: "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items()) + f"; {n_done} cases")
+        for r in probes:
+            log(f"[prep] probe: {probe_line(r, probe_budget)}")
+        log(f"[prep] plan: patch {plan.patch_size}, batch {plan.batch_size}, remat={plan.remat}, "
+            f"target spacing {plan.target_spacing}, pool strides {plan.pool_strides}, decoder "
+            f"levels {list(plan.decoder_levels)}, anchors {plan.anchors} (score "
+            f"{plan.anchor_score:.4f}), mem_estimate_bytes {plan.mem_estimate_bytes} "
+            f"({plan.mem_estimate_bytes / 2 ** 30:.4f} GiB), mem_compiled_bytes "
+            f"{plan.mem_compiled_bytes} ({plan.mem_compiled_bytes / 2 ** 30:.4f} GiB), "
+            f"requires_lowres={plan.requires_lowres}; budget {budget / 2 ** 30:.4f} GiB (0.85 x "
+            f"{total / 2 ** 30:.4f} GiB), probe budget {probe_budget / 2 ** 30:.4f} GiB")
+        log(f"[prep] kernel launches in run_prep (the probe's steps): {prep_launches}")
+        not_run = [k for k in TRAIN_KERNELS if prep_launches.get(k, 0) == 0]
+        if not_run:
+            raise AssertionError(f"prep: the probe never launched {not_run}")
+        if not plan.mem_compiled_bytes > 0:
+            raise AssertionError("prep: the plan has no measured peak")
+        final = [r for r in probes if (r["batch"], r["remat"], r["patch"]) == (
+            plan.batch_size, plan.remat, tuple(plan.patch_size))]
+        if not final or not final[-1]["est"].fits(probe_budget) or \
+                final[-1]["est"].total_bytes != plan.mem_compiled_bytes:
+            raise AssertionError("prep: the plan's batch and patch did not pass the probe")
+
+        # the same properties planned on the CPU at the card's budget
+        props = load_pickle(task_dir / "preprocessed" / "properties" / "dataset_properties.pkl")
+        info = DatasetInfo.from_file(task_dir / "dataset.yaml")
+        cpu_plan = planner_mod.Planner(hbm_budget=budget, device="cpu").plan_experiment(
+            props, info)
+        base_over = any(r["batch"] == 4 and not r["est"].fits(probe_budget) for r in probes)
+        decided = PROBE_FIELDS + (PATCH_FIELDS if base_over else ())
+        card, cpu = dataclasses.asdict(plan), dataclasses.asdict(cpu_plan)
+        differ = {k: (card[k], cpu[k]) for k in card if card[k] != cpu[k]}
+        log(f"[prep] card plan vs CPU plan at {budget} bytes: fields that differ "
+            f"{differ or 'none'}; the probe decides {list(decided)}")
+        wrong = sorted(set(differ) - set(decided))
+        if wrong:
+            raise AssertionError(f"prep: the card's and the CPU's plans differ in {wrong}")
+
+        # train a fold on the port's own plan
+        loaders = []
+        pool_budget = pipeline.pool_budget(plan, plan.batch_size, total)
+        with patched(pipeline, {"build_loaders": capturing(loaders)}):
+            r = run_train_once(device, task_dir, Path(tmp) / "models", steps, val_batches)
+        pool = loaders.pop()[0]
+        m = r["m"]
+        log(f"[prep] run_train on the port's plan: {m['steps']} fed steps {m['epoch_time_s']:.3f} "
+            f"s = {r['s_per_step']:.4f} s/step, {r['patches_per_s']:.2f} patches/s at batch "
+            f"{plan.batch_size}; peak device memory {r['peak_gib']:.4f} GiB against the probe's "
+            f"{plan.mem_compiled_bytes / 2 ** 30:.4f} GiB; pool budget {pool_budget} bytes "
+            f"({pool_budget / 2 ** 30:.4f} GiB), {type(pool).__name__}.pool_bytes() "
+            f"{pool.pool_bytes()} ({pool.pool_bytes() / 2 ** 30:.4f} GiB); losses "
+            + ", ".join(f"{k} {m['train_' + k]:.4f}" for k in ("cls", "reg", "seg_ce", "seg_dice"))
+            + f"; {r['changed']}/{r['tensors']} parameter tensors changed; pool {r['pool']}")
+        log(f"[prep] kernel launches in run_train: {r['launches']}")
+        del pool
+
+    # the fed step's peak split by GT slots, at the LUNA plan, batch 8
+    split = {}
+    for slots in (8, 32):
+        calls = []
+        recording_probe(calls)(probe_train_step_estimate)(luna_cfg(), 8, slots, device=device)
+        split[slots] = calls[0]
+        log(f"[prep] split, LUNA plan: {probe_line(calls[0], probe_budget)}")
+    slot_share = (split[32]["est"].total_bytes - split[8]["est"].total_bytes) / 2 ** 30
+    seen = {"prepared step (train phase, 8 GT slots)": prepared, "fed step, pool (train_aug "
+            "phase, 32 GT slots)": fed}
+    log(f"[prep] split: 24 more GT slots take {slot_share:.4f} GiB; peaks of this run: "
+        + "; ".join(f"{k} {v['peak_gib']:.4f} GiB" if v else f"{k} not run"
+                    for k, v in seen.items())
+        + (f"; the fed step above the probe at 32 slots: "
+           f"{fed['peak_gib'] - split[32]['est'].total_bytes / 2 ** 30:.4f} GiB (augmentation, "
+           "pool, prefetched batches and the baseline)" if fed else ""))
+    return dict(launches={"run_prep": prep_launches, "run_train": r["launches"]}, plan=plan,
+                stages=stages, probes=probes, split=split, run_train=r)
+
+
 def profile_train_step(trainer, state, targets, out_dir, label="train") -> None:
     """Device time by kernel over one train step (``torch.profiler``), the
     table into ``out_dir/<label>_profile.txt``."""
@@ -2522,7 +2800,7 @@ def profile_train_step(trainer, state, targets, out_dir, label="train") -> None:
 
 PHASES = ("build", "kernels", "conv", "norm", "nms", "wbc", "reference", "forward", "serve",
           "consolidate", "nms_mask", "sweep", "deploy", "train", "train_aug", "run_train",
-          "serve_fused", "train_fused")
+          "prep", "serve_fused", "train_fused")
 # the checks of one kernel alone, which ``kernels`` includes
 KERNEL_PHASES = ("conv", "norm", "nms", "wbc")
 
@@ -2554,7 +2832,7 @@ def main() -> None:
     smi = phase_device()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    launches, summary, train = {}, None, None
+    launches, summary, train, fed = {}, None, None, None
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
@@ -2589,9 +2867,12 @@ def main() -> None:
         train = phase_train(device, profile_dir=profile_dir)
         launches["train"] = train["launches"]
     if "train_aug" in phases:
-        launches["train aug"] = phase_train_aug(device, train)["launches"]
+        fed = phase_train_aug(device, train)
+        launches["train aug"] = fed["launches"]
     if "run_train" in phases:
         launches["run_train"] = phase_run_train(device)["launches"]
+    if "prep" in phases:
+        launches["prep"] = phase_prep(device, prepared=train, fed=fed)["launches"]
     if "serve_fused" in phases:
         launches["serve fused"] = phase_serve_fused(device)
     if "train_fused" in phases:
@@ -2616,7 +2897,10 @@ def main() -> None:
                             "shape": row["shape"],
                             **{k: row[k] for k in ("device_ms", "host_ms") if k in row},
                             **({"run_train_launches": launches["run_train"].get(name, 0)}
-                               if "run_train" in launches else {})})
+                               if "run_train" in launches else {}),
+                            **({"prep_launches": {k: v.get(name, 0)
+                                                  for k, v in launches["prep"].items()}}
+                               if "prep" in launches else {})})
         print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

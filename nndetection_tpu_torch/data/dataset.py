@@ -1,6 +1,6 @@
-"""The dataset directory contract (counterpart of the parts of
-:mod:`nndetection_tpu.data.dataset` that training reads): ``dataset.yaml``
-as :class:`DatasetInfo`, task lookup and case ids from file names.
+"""The dataset directory contract (copy of :mod:`nndetection_tpu.data.dataset`):
+``dataset.yaml`` as :class:`DatasetInfo`, task lookup, case ids from file
+names, and the raw cases of a directory (:func:`discover_cases`).
 
 ```
 {det_data}/TaskXXX_Name/
@@ -16,9 +16,9 @@ import os
 import re
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
-from nndetection_tpu_torch.utils.io import load_yaml
+from nndetection_tpu_torch.utils.io import load_json, load_yaml
 
 MODALITY_RE = re.compile(r"^(.*)_(\d{4})\.nii(\.gz)?$")
 
@@ -86,3 +86,48 @@ def case_id_from_label(path) -> str:
         if name.endswith(suffix):
             return name[: -len(suffix)]
     raise ValueError(f"unexpected label filename: {path}")
+
+
+@dataclass
+class Case:
+    case_id: str
+    images: List[Path]  # one per modality, sorted
+    label: Optional[Path] = None
+    label_json: Optional[Path] = None
+
+    def instances(self) -> Dict[int, int]:
+        """Instance id -> class id mapping from the per-case json."""
+        if self.label_json is None:
+            return {}
+        raw = load_json(self.label_json).get("instances", {})
+        return {int(k): int(v) for k, v in raw.items()}
+
+
+def discover_cases(
+    image_dir, label_dir=None, num_modalities: Optional[int] = None
+) -> List[Case]:
+    """The cases of ``image_dir`` (``{case}_{modality:04d}.nii[.gz]``),
+    sorted by id, with their label map and json from ``label_dir``."""
+    image_dir = Path(image_dir)
+    by_case: Dict[str, List[Path]] = {}
+    for p in sorted(image_dir.glob("*.nii*")):
+        cid = case_id_from_image(p)
+        by_case.setdefault(cid, []).append(p)
+    cases = []
+    for cid, imgs in sorted(by_case.items()):
+        imgs = sorted(imgs)
+        if num_modalities is not None and len(imgs) != num_modalities:
+            raise ValueError(
+                f"case {cid}: expected {num_modalities} modalities, found {len(imgs)}"
+            )
+        label = label_json = None
+        if label_dir is not None:
+            label_dir = Path(label_dir)
+            for suffix in (".nii.gz", ".nii"):
+                if (label_dir / f"{cid}{suffix}").exists():
+                    label = label_dir / f"{cid}{suffix}"
+                    break
+            if (label_dir / f"{cid}.json").exists():
+                label_json = label_dir / f"{cid}.json"
+        cases.append(Case(case_id=cid, images=imgs, label=label, label_json=label_json))
+    return cases

@@ -1,11 +1,53 @@
-"""Instance segmentation -> boxes and semantic segmentation on tensors
-(counterpart of the jnp half of :mod:`nndetection_tpu.data.instances`).
+"""Instance segmentation -> boxes and semantic segmentation (counterpart
+of :mod:`nndetection_tpu.data.instances`): the NumPy versions of the
+preprocessing, copied, and the tensor versions of the target preparation.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+
+
+def instances_to_boxes_np(
+    seg: np.ndarray, instance_ids: Optional[Sequence[int]] = None
+) -> Tuple[np.ndarray, List[int]]:
+    """Bounding boxes of the labelled instances of ``seg [*spatial]`` (0
+    background, >0 ids).
+
+    Returns ``(boxes [N, 2*dim] float64, ids)``, interleaved corners with
+    exclusive upper corners (``hi = max index + 1``).
+    """
+    if instance_ids is None:
+        instance_ids = [int(i) for i in np.unique(seg) if i > 0]
+    boxes = []
+    kept = []
+    for iid in instance_ids:
+        idx = np.where(seg == iid)
+        if len(idx[0]) == 0:
+            continue
+        lo = [int(a.min()) for a in idx]
+        hi = [int(a.max()) + 1 for a in idx]
+        if seg.ndim == 2:
+            boxes.append([lo[0], lo[1], hi[0], hi[1]])
+        else:
+            boxes.append([lo[0], lo[1], hi[0], hi[1], lo[2], hi[2]])
+        kept.append(iid)
+    if not boxes:
+        return np.zeros((0, 2 * seg.ndim), dtype=np.float64), []
+    return np.asarray(boxes, dtype=np.float64), kept
+
+
+def instances_to_segmentation_np(
+    seg: np.ndarray, instance_classes: Dict[int, int]
+) -> np.ndarray:
+    """Map instance ids to semantic classes (classes start at 1, 0 bg)."""
+    out = np.zeros_like(seg, dtype=np.int16)
+    for iid, cls in instance_classes.items():
+        out[seg == iid] = cls + 1
+    out[seg == -1] = -1
+    return out
 
 
 def instances_to_boxes(seg: torch.Tensor, max_instances: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,6 +1,7 @@
 """Stage entry points of the port (counterpart of :mod:`nndetection_tpu.pipeline`):
-training a fold (:func:`run_train`, with its folds, loaders and patch-pool
-budget), and the prediction of a directory of preprocessed cases."""
+preparing a task (:func:`run_prep`: crop, analyze, plan, process), training
+a fold (:func:`run_train`, with its folds, loaders and patch-pool budget),
+and the prediction of a directory of preprocessed cases."""
 from __future__ import annotations
 
 import os
@@ -17,20 +18,98 @@ from nndetection_tpu_torch.data.augment import (
     generator_patch_size_for,
     get_generator_patch_size,
 )
+from nndetection_tpu_torch.data.dataset import DatasetInfo, discover_cases
 from nndetection_tpu_torch.data.loader import (
     DevicePatchPool,
     PatchLoader,
     PrefetchIterator,
     build_case_records,
 )
+from nndetection_tpu_torch.data.preprocess import (
+    analyze_dataset,
+    process_case,
+    run_cropping,
+    unpack_dataset,
+)
 from nndetection_tpu_torch.inference.predictor import ModelBundle, Predictor
 from nndetection_tpu_torch.inference.restore import restore_fmap
-from nndetection_tpu_torch.utils.io import load_pickle, save_pickle
+from nndetection_tpu_torch.planning.planner import Plan, Planner
+from nndetection_tpu_torch.utils.io import load_npz_looped, load_pickle, save_pickle
 
 NUM_FOLDS = 5
 SPLIT_SEED = 12345
 # the device patch pool's budget unless NNDET_POOL_BYTES sets it
 DEFAULT_POOL_BYTES = 4 * 1024**3
+
+
+def _process_all(cropped_dir, plan: Plan, case_ids: Sequence[str], plan_dir: Path) -> None:
+    """Process every case for ``plan`` into ``plan_dir/{imagesTr,labelsTr}``,
+    re-process any whose ``.npz`` does not load back (a corrupted write),
+    then unpack the ``.npz`` into ``.npy``."""
+    out_images, out_labels = plan_dir / "imagesTr", plan_dir / "labelsTr"
+    kw = dict(target_spacing=np.asarray(plan.target_spacing),
+              transpose_forward=plan.transpose_forward,
+              normalization_schemes=plan.normalization_schemes,
+              intensity_properties=plan.intensity_properties,
+              use_nonzero_mask=plan.use_nonzero_mask)
+    for cid in case_ids:
+        process_case(cropped_dir, out_images, out_labels, cid, **kw)
+    for cid in case_ids:
+        try:
+            load_npz_looped(out_images / f"{cid}.npz", keys=["data"])
+        except RuntimeError:  # load_npz_looped's verdict after its retries
+            process_case(cropped_dir, out_images, out_labels, cid, **kw)
+    unpack_dataset(out_images)
+
+
+def run_prep(
+    task_dir,
+    num_workers: int = 0,
+    planner: Optional[Planner] = None,
+    device: Union[torch.device, str] = "cuda",
+) -> Plan:
+    """Prepare the raw task ``task_dir`` for training: crop -> analyze ->
+    plan -> process, as the JAX package's ``run_prep`` does, into the same
+    files under the same names (``raw_cropped/``,
+    ``preprocessed/properties/dataset_properties.pkl``,
+    ``preprocessed/{plan_id}.pkl``, ``preprocessed/{plan_id}/{imagesTr,
+    labelsTr}/`` and ``preprocessed/splits_final.pkl``), with the ``3dlr1``
+    low-resolution plan when the largest objects exceed the patch.
+
+    Cropping and analysis run in ``num_workers`` host processes (none for 0);
+    everything but the planner's probe runs on the host. ``planner``
+    defaults to ``Planner(device=device)``: 0.85 x the card's memory, the
+    plan confirmed by the train step run on the card. ``device`` is the card
+    unless the caller passes another (``"cpu"``, with a ``planner`` that has
+    a budget); without CUDA the default raises."""
+    dev = resolve_device(device)
+    task_dir = Path(task_dir)
+    info = DatasetInfo.from_file(task_dir / "dataset.yaml")
+    splitted = task_dir / "raw_splitted"
+    cropped_dir = task_dir / "raw_cropped"
+    prep_dir = task_dir / "preprocessed"
+
+    cases = discover_cases(splitted / "imagesTr", splitted / "labelsTr", info.num_modalities)
+    if not cases:
+        raise FileNotFoundError(f"no training cases in {splitted / 'imagesTr'}")
+    run_cropping(cases, cropped_dir, num_workers=num_workers)
+
+    case_ids = [c.case_id for c in cases]
+    props = analyze_dataset(cropped_dir, case_ids, info.num_modalities, num_workers=num_workers)
+    save_pickle(props, prep_dir / "properties" / "dataset_properties.pkl")
+
+    planner = planner or Planner(device=dev)
+    plan = planner.plan_experiment(props, info)
+    save_pickle(plan, prep_dir / f"{plan.plan_id}.pkl")
+    _process_all(cropped_dir, plan, case_ids, prep_dir / plan.plan_id)
+
+    if plan.requires_lowres:
+        plan_lr = planner.plan_lowres(plan, props, info)
+        save_pickle(plan_lr, prep_dir / f"{plan_lr.plan_id}.pkl")
+        _process_all(cropped_dir, plan_lr, case_ids, prep_dir / plan_lr.plan_id)
+
+    make_splits(case_ids, prep_dir / "splits_final.pkl")
+    return plan
 
 
 def make_splits(case_ids: Sequence[str], path, num_folds: int = NUM_FOLDS) -> List[Dict]:
@@ -196,7 +275,6 @@ def run_train(
     another (``"cpu"``)."""
     from nndetection_tpu_torch import modules  # noqa: F401 - registers the variants
     from nndetection_tpu_torch.data.aug_presets import get_augmentation
-    from nndetection_tpu_torch.data.dataset import DatasetInfo
     from nndetection_tpu_torch.evaluator.det import BoxEvaluator
     from nndetection_tpu_torch.parallel import distributed
     from nndetection_tpu_torch.planning.planner import load_plan

@@ -26,11 +26,16 @@ SLICE_MODULES = [
     "nndetection_tpu_torch.data",
     "nndetection_tpu_torch.data.aug_presets",
     "nndetection_tpu_torch.data.augment",
+    "nndetection_tpu_torch.data.crop",
     "nndetection_tpu_torch.data.dataset",
+    "nndetection_tpu_torch.data.example",
     "nndetection_tpu_torch.data.gt_prep",
     "nndetection_tpu_torch.data.instances",
     "nndetection_tpu_torch.data.loader",
+    "nndetection_tpu_torch.data.nifti",
+    "nndetection_tpu_torch.data.normalize",
     "nndetection_tpu_torch.data.patching",
+    "nndetection_tpu_torch.data.preprocess",
     "nndetection_tpu_torch.data.resample",
     "nndetection_tpu_torch.evaluator",
     "nndetection_tpu_torch.evaluator.case",
@@ -69,6 +74,9 @@ SLICE_MODULES = [
     "nndetection_tpu_torch.parallel.distributed",
     "nndetection_tpu_torch.pipeline",
     "nndetection_tpu_torch.planning",
+    "nndetection_tpu_torch.planning.anchors_opt",
+    "nndetection_tpu_torch.planning.architecture",
+    "nndetection_tpu_torch.planning.estimator",
     "nndetection_tpu_torch.planning.planner",
     "nndetection_tpu_torch.train",
     "nndetection_tpu_torch.train.lr",
