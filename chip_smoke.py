@@ -127,7 +127,23 @@ Phases, each printing its findings:
    memory beside the probe's, the pool's budget and ``pool_bytes()``; last
    the probe at the LUNA plan, batch 8, with 8 and with 32 GT slots, beside
    the train and train_aug phases' peaks (the fed step's peak split);
-15. serve fused and train fused: phases 6 (the 140x320x320 case) and 7 under
+15. cli: the README's sequence through the port's command-line entry points
+   (each ``main()`` in this process, ``sys.argv`` set, ``det_data`` and
+   ``det_models`` in a temporary directory) on a raw task as in phase 14
+   plus 2 test cases (one with objects, one without): ``cli.prep`` (4
+   workers), ``cli.train --fold 0 --sweep`` (6 fed steps, 2 validation
+   batches, no SWA), ``cli.consolidate``, ``cli.predict`` (TTA) and
+   ``cli.evaluate --seg --case``, each with its launch counts reset just
+   before; seconds, peak memory and launches per command, the plan and
+   s/step, the swept parameters, boxes per test case and the box, case and
+   seg scores; the files of the JAX package's sequence, finite scores, #1-#4
+   launched by the probe and the training, #1, #2, #7 and the cluster
+   kernel by the sweep's and the test split's predictions, the sweep on the
+   card against the device formulation on the CPU (identical best
+   parameters), and ``run_predict_val`` on the card against
+   ``materialize_val_predictions`` on the host (paired, rtol and atol
+   1e-5) checked;
+16. serve fused and train fused: phases 6 (the 140x320x320 case) and 7 under
    ``NNDET_CONV_FUSED=1``, restored after; #5 must launch 7 times per model
    forward (both convs of stage 0, the second of stages 1-5), so 14 times
    per train step with remat, beside the other kernels.
@@ -137,7 +153,8 @@ that drives it (serve for NMS, train fused for #5, train for the instance
 norm, consolidate for the cluster kernel, NMS mask for #8 and the
 keep-scan; #6, which no path launches, in the kernels phase; each
 kernel's launches in run_train (a) as ``run_train_launches``, and in the
-prep phase's ``run_prep`` and ``run_train`` as ``prep_launches``), max error,
+prep phase's ``run_prep`` and ``run_train`` as ``prep_launches``, and in
+the cli phase's commands as ``cli_launches``), max error,
 times and bound, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
 non-zero and no result line is printed.
@@ -149,7 +166,7 @@ runs only the phases named (of ``build``, ``kernels``, ``conv``, ``norm``,
 ``nms`` and ``wbc`` (#5's, #1's, #7's and the cluster kernel's checks
 alone), ``reference``, ``forward``, ``serve``, ``consolidate``,
 ``nms_mask``, ``sweep``, ``deploy``, ``train``, ``train_aug``,
-``run_train``, ``prep``, ``serve_fused``, ``train_fused``); the
+``run_train``, ``prep``, ``cli``, ``serve_fused``, ``train_fused``); the
 device phase always runs, the ``kernels`` JSON line only when every phase
 it reads ran. With no argument every phase but ``conv``, ``norm``, ``nms``
 and ``wbc`` runs (``kernels`` holds them).
@@ -2535,29 +2552,40 @@ def write_raw_task(task_dir, n_cases=PREP_CASES, shape=PREP_CASE_SHAPE, spacings
     CT modality and two labels): ``n_cases`` float32 cases in HU (``data x
     1400 - 1000`` of ``example.generate_case``), 1-3 seeded objects each,
     case ``i`` at ``spacings[i]``."""
-    from nndetection_tpu_torch.data import nifti
-    from nndetection_tpu_torch.data.example import generate_case
-    from nndetection_tpu_torch.utils.io import save_json, save_yaml
+    from nndetection_tpu_torch.utils.io import save_yaml
 
-    images = task_dir / "raw_splitted" / "imagesTr"
-    labels = task_dir / "raw_splitted" / "labelsTr"
-    images.mkdir(parents=True)
-    labels.mkdir(parents=True)
     save_yaml({"task": task_dir.name, "name": "LunaLike", "dim": 3, "target_class": None,
                "test_labels": True, "labels": {"0": "c0", "1": "c1"},
                "modalities": {"0": "CT"}}, task_dir / "dataset.yaml")
     for i in range(n_cases):
-        rng = np.random.RandomState(seed + i)
-        data, seg, instances = None, np.zeros(shape, np.uint8), {}
-        for iid in range(1, rng.randint(1, 4) + 1):
-            d, mask, cls = generate_case(rng, shape, PREP_OBJECT_SIZE, object_width=3)
-            data = d if data is None else np.where(mask > 0, d, data)
-            seg[mask > 0] = iid
-            instances[str(iid)] = int(cls)
-        hu = (data * 1400.0 - 1000.0).astype(np.float32)
-        nifti.save(images / f"case_{i}_0000.nii.gz", hu, spacing=spacings[i])
-        nifti.save(labels / f"case_{i}.nii.gz", seg, spacing=spacings[i])
-        save_json({"instances": instances}, labels / f"case_{i}.json")
+        write_raw_case(task_dir, "Tr", f"case_{i}", np.random.RandomState(seed + i), shape,
+                       spacings[i])
+
+
+def write_raw_case(task_dir, split, cid, rng, shape, spacing, objects=True) -> None:
+    """One case of :func:`write_raw_task` under ``raw_splitted/{images,
+    labels}{split}``: 1-3 seeded objects, or none (a negative case) without
+    ``objects``."""
+    from nndetection_tpu_torch.data import nifti
+    from nndetection_tpu_torch.data.example import generate_case
+    from nndetection_tpu_torch.utils.io import save_json
+
+    images = task_dir / "raw_splitted" / f"images{split}"
+    labels = task_dir / "raw_splitted" / f"labels{split}"
+    images.mkdir(parents=True, exist_ok=True)
+    labels.mkdir(parents=True, exist_ok=True)
+    data, seg, instances = None, np.zeros(shape, np.uint8), {}
+    for iid in range(1, rng.randint(1, 4) + 1 if objects else 1):
+        d, mask, cls = generate_case(rng, shape, PREP_OBJECT_SIZE, object_width=3)
+        data = d if data is None else np.where(mask > 0, d, data)
+        seg[mask > 0] = iid
+        instances[str(iid)] = int(cls)
+    if data is None:  # the background of generate_case alone
+        data = rng.rand(*shape).astype(np.float32)
+    hu = (data * 1400.0 - 1000.0).astype(np.float32)
+    nifti.save(images / f"{cid}_0000.nii.gz", hu, spacing=spacing)
+    nifti.save(labels / f"{cid}.nii.gz", seg, spacing=spacing)
+    save_json({"instances": instances}, labels / f"{cid}.json")
 
 
 @contextlib.contextmanager
@@ -2772,6 +2800,233 @@ def phase_prep(device, n_cases=PREP_CASES, shape=PREP_CASE_SHAPE, num_workers=4,
                 stages=stages, probes=probes, split=split, run_train=r)
 
 
+# the cli phase: the README's sequence through the port's entry points, from
+# a raw CT task to scores
+CLI_TASK = "Task102_LunaLike"
+CLI_TEST_CASES = 2  # the first with objects, the second without
+CLI_TEST_SPACING = (1.25, 0.75, 0.75)
+# the kernels each stage must launch: the probe and the training, and every
+# prediction (the sweep's, the test split's)
+PREDICT_KERNELS = ("in_stats", "in_apply", "nms_topk", "wbc_cluster")
+CLI_KERNELS = {"prep": TRAIN_KERNELS, "train": RUN_TRAIN_KERNELS, "sweep": PREDICT_KERNELS,
+               "consolidate": CONSOLIDATE_KERNELS, "predict": PREDICT_KERNELS}
+# run_predict_val (the card, float32 WBC) against materialize_val_predictions
+# (the host, float64 WBC) on the same raw detections: PERF.md section 2
+CLI_VAL_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@contextlib.contextmanager
+def environ(values: dict):
+    """``os.environ`` with ``values`` set for the block, restored after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def launch_delta(launches: dict, name: str):
+    """A wrapper that records the kernel launches of each call in
+    ``launches[name]``."""
+    from nndetection_tpu_torch.ops import LAUNCHES
+
+    def wrap(fn):
+        def counted(*args, **kwargs):
+            before = dict(LAUNCHES)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                launches[name] = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                                  if v - before.get(k, 0)}
+        return counted
+    return wrap
+
+
+def phase_cli(device, n_cases=PREP_CASES, shape=PREP_CASE_SHAPE, n_test=CLI_TEST_CASES,
+              num_workers=4, steps=6, val_batches=2, extra_overrides=()) -> dict:
+    """The README's sequence through the port's command-line entry points,
+    each ``main()`` called in this process with ``sys.argv`` set, on a raw
+    task of ``n_cases`` seeded CT cases (:func:`write_raw_task`) and
+    ``n_test`` test cases: ``cli.prep`` (``num_workers`` workers), ``cli.train
+    --fold 0 --sweep`` (one epoch of ``steps`` steps, ``val_batches``
+    validation batches, no SWA), ``cli.consolidate --num_folds 1``,
+    ``cli.predict --num_folds 1`` (TTA) and ``cli.evaluate --seg --case``.
+    Seconds, peak memory and kernel launches per command. Checked: the
+    files, finite scores, each stage's kernels (``CLI_KERNELS``), the
+    card's sweep against the CPU's device formulation on the same states
+    (identical best parameters), and ``run_predict_val`` on the card against
+    ``materialize_val_predictions`` on the host (``CLI_VAL_TOL``)."""
+    import logging
+    import tempfile
+    from pathlib import Path
+
+    import nndetection_tpu_torch.inference.ensembler as ensembler
+    from nndetection_tpu_torch import pipeline
+    from nndetection_tpu_torch.cli import consolidate, evaluate, predict, prep, train
+    from nndetection_tpu_torch.inference.sweeper import BoxSweeper
+    from nndetection_tpu_torch.ops import LAUNCHES
+    from nndetection_tpu_torch.planning.planner import load_plan
+    from nndetection_tpu_torch.utils.io import load_json, load_pickle
+
+    overrides = ["trainer_cfg.max_num_epochs=1", f"trainer_cfg.num_train_batches_per_epoch={steps}",
+                 f"trainer_cfg.num_val_batches_per_epoch={val_batches}",
+                 "trainer_cfg.swa_epochs=0", "trainer_cfg.warm_iterations=10",
+                 *extra_overrides]
+    with tempfile.TemporaryDirectory() as tmp:
+        data, models = Path(tmp) / "data", Path(tmp) / "models"
+        task_dir = data / CLI_TASK
+        t0 = time.perf_counter()
+        write_raw_task(task_dir, n_cases, shape)
+        for i in range(n_test):
+            write_raw_case(task_dir, "Ts", f"case_{n_cases + i}",
+                           np.random.RandomState(100 + i), shape, CLI_TEST_SPACING,
+                           objects=i == 0)
+        t_write = time.perf_counter() - t0
+        seconds, launches, peaks = {}, {}, {}
+
+        def command(name, module, *argv):
+            saved = sys.argv
+            sys.argv = [f"{module.__name__}", CLI_TASK, *map(str, argv)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            try:
+                module.main()
+                torch.cuda.synchronize()
+            finally:
+                sys.argv = saved
+            seconds[name] = time.perf_counter() - t0
+            launches[name] = dict(LAUNCHES)
+            peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        with environ({"det_data": str(data), "det_models": str(models)}), \
+                patched(train, {"run_sweep": launch_delta(launches, "sweep")}), \
+                patched(train, {"run_sweep": timer(seconds, "sweep")}):
+            try:
+                command("prep", prep, "--num_workers", num_workers)
+                command("train", train, "--fold", 0, "--sweep", "-o", *overrides)
+                command("consolidate", consolidate, "--num_folds", 1)
+                command("predict", predict, "--num_folds", 1)
+                command("evaluate", evaluate, "--seg", "--case")
+            finally:
+                for h in logging.root.handlers[:]:  # the commands' log files
+                    h.close()
+                    logging.root.removeHandler(h)
+        launches["train"] = {k: v - launches["sweep"].get(k, 0)
+                             for k, v in launches["train"].items()
+                             if v - launches["sweep"].get(k, 0)}
+
+        # the files of the JAX package's sequence
+        model_dir = models / CLI_TASK / "RetinaUNetV001_D3V001_3d"
+        fold, cons, preds = model_dir / "fold0", model_dir / "consolidated", \
+            model_dir / "test_predictions"
+        plan = load_plan(task_dir / "preprocessed" / "D3V001_3d.pkl")
+        check_prepared_task(task_dir, plan)
+        test_ids = [f"case_{n_cases + i}" for i in range(n_test)]
+        ts = task_dir / "preprocessed" / plan.plan_id
+        wanted = ([fold / f for f in ("model_last.ckpt", "plan_inference.pkl", "metrics.json")]
+                  + [cons / f for f in ("model_fold0.ckpt", "plan_inference.pkl", "plan.pkl")]
+                  + [ts / f"imagesTs/{c}.npy" for c in test_ids]
+                  + [ts / f"labelsTs/{c}_boxes_gt_orig.npz" for c in test_ids]
+                  + [preds / f"{c}_boxes.pkl" for c in test_ids]
+                  + [preds / f"results_{k}.json" for k in ("boxes", "case", "seg")])
+        missing = [str(p.relative_to(tmp)) for p in wanted if not p.exists()]
+        states = sorted(p.name for p in (fold / "sweep").glob("*_boxes_state.pkl"))
+        pooled = sorted(p.name for p in (cons / "sweep_states").glob("*_boxes_state.pkl"))
+        if missing or not states or pooled != states:
+            raise AssertionError(f"cli: files missing {missing}, sweep states {states}, "
+                                 f"consolidated states {pooled}")
+        boxes = {}
+        for cid in test_ids:
+            r = load_pickle(preds / f"{cid}_boxes.pkl")
+            if r["restored"] is not True or not np.isfinite(r["pred_boxes"]).all() \
+                    or not len(r["pred_scores"]):
+                raise AssertionError(f"cli: {cid} not restored, without or with non-finite boxes")
+            boxes[cid] = len(r["pred_scores"])
+        scores = {k: load_json(preds / f"results_{k}.json") for k in ("boxes", "case", "seg")}
+        bad = [f"{k}:{n}" for k, s in scores.items() for n, v in s.items()
+               if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"cli: scores not finite: {bad}")
+        for stage, kernels in CLI_KERNELS.items():
+            not_run = [k for k in kernels if launches[stage].get(k, 0) == 0]
+            if not_run:
+                raise AssertionError(f"cli {stage}: kernels never launched: {not_run}")
+        epoch = load_json(fold / "metrics.json")[0]
+        pooled_params = load_pickle(cons / "plan_inference.pkl")["parameters"]
+
+        # the card's sweep against the device formulation on the CPU
+        info_classes = ["c0", "c1"]
+        swept = load_pickle(fold / "plan_inference.pkl")
+        ensembler.DEVICE_WBC = True
+        try:
+            t0 = time.perf_counter()
+            cpu_sweep = BoxSweeper(info_classes, fold / "sweep", ts / "labelsTr",
+                                   device="cpu").run_postprocessing_sweep()
+            t_cpu_sweep = time.perf_counter() - t0
+        finally:
+            ensembler.DEVICE_WBC = "auto"
+        host_sweep = BoxSweeper(info_classes, fold / "sweep", ts / "labelsTr",
+                                device="cpu").run_postprocessing_sweep()
+        if cpu_sweep["parameters"] != swept["parameters"] or \
+                not abs(cpu_sweep["score"] - swept["score"]) <= 1e-6:
+            raise AssertionError(f"cli: sweep on the card {swept}, on the CPU {cpu_sweep}")
+
+        # the validation predictions, predicted again on the card against
+        # those materialized from the sweep's states on the host
+        t0 = time.perf_counter()
+        val = pipeline.run_predict_val(task_dir, model_dir, fold=0, device=device)
+        torch.cuda.synchronize()
+        t_val = time.perf_counter() - t0
+        val = val.rename(val.parent / "val_predicted")
+        t0 = time.perf_counter()
+        mat = pipeline.materialize_val_predictions(task_dir, model_dir, fold=0, device=device)
+        t_mat = time.perf_counter() - t0
+        names = sorted(p.name for p in val.glob("*_boxes.pkl"))
+        if not names or names != sorted(p.name for p in mat.glob("*_boxes.pkl")):
+            raise AssertionError(f"cli: validation predictions {names}")
+        val_err, val_n = 0.0, []
+        for name in names:
+            got, want = load_pickle(val / name), load_pickle(mat / name)
+            if not (got["restored"] and want["restored"]) or not len(want["pred_scores"]):
+                raise AssertionError(f"cli: validation {name} not restored or empty")
+            val_err = max(val_err, paired_max_err(f"cli val {name}", got, want, **CLI_VAL_TOL))
+            val_n.append(len(want["pred_scores"]))
+
+    log(f"[cli] task of {n_cases} + {n_test} test cases {shape} written in {t_write:.2f} s; "
+        "seconds per command: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()
+                                            if k != "sweep")
+        + f" (of train, the sweep {seconds['sweep']:.2f})")
+    log(f"[cli] plan: patch {plan.patch_size}, batch {plan.batch_size}, remat={plan.remat}, "
+        f"mem_compiled_bytes {plan.mem_compiled_bytes / 2 ** 30:.4f} GiB; train "
+        f"{epoch['steps']} fed steps {epoch['epoch_time_s']:.3f} s = "
+        f"{epoch['epoch_time_s'] / epoch['steps']:.4f} s/step, val cls {epoch['val_cls']:.4f}")
+    log(f"[cli] sweep (fold 0, {len(states)} cases): {swept['parameters']} score "
+        f"{swept['score']:.6f}; identical on the CPU's device formulation ({t_cpu_sweep:.2f} s); "
+        f"host float64 {'agrees' if host_sweep == swept else 'differs: ' + str(host_sweep)}; "
+        f"consolidated {pooled_params}")
+    log(f"[cli] boxes per test case {boxes}; box mAP "
+        f"{scores['boxes']['mAP_IoU_0.10_0.50_0.05_MaxDet_100']:.4f}, AP@0.1 "
+        f"{scores['boxes']['AP_IoU_0.10_MaxDet_100']:.4f}, FROC@0.1 "
+        f"{scores['boxes']['FROC_score_IoU_0.10']:.4f}; case AUROC "
+        f"{scores['case']['case_auroc']:.4f}, AP {scores['case']['case_ap']:.4f}; seg dice "
+        f"{scores['seg']['seg_dice_fg_mean']:.4f} (run_predict_test writes no seg maps, as the "
+        "JAX package's)")
+    log(f"[cli] run_predict_val on the card {t_val:.2f} s against materialize_val_predictions "
+        f"on the host {t_mat:.2f} s: {val_n} detections, paired within {CLI_VAL_TOL}, max abs "
+        f"err {val_err:.2e}")
+    log("[cli] peak device memory GiB " + ", ".join(f"{k} {v:.4f}" for k, v in peaks.items()))
+    for stage in ("prep", "train", "sweep", "consolidate", "predict", "evaluate"):
+        log(f"[cli] kernel launches in {stage}: {launches[stage]}")
+    return dict(launches=launches, seconds=seconds, plan=plan)
+
+
 def profile_train_step(trainer, state, targets, out_dir, label="train") -> None:
     """Device time by kernel over one train step (``torch.profiler``), the
     table into ``out_dir/<label>_profile.txt``."""
@@ -2800,7 +3055,7 @@ def profile_train_step(trainer, state, targets, out_dir, label="train") -> None:
 
 PHASES = ("build", "kernels", "conv", "norm", "nms", "wbc", "reference", "forward", "serve",
           "consolidate", "nms_mask", "sweep", "deploy", "train", "train_aug", "run_train",
-          "prep", "serve_fused", "train_fused")
+          "prep", "cli", "serve_fused", "train_fused")
 # the checks of one kernel alone, which ``kernels`` includes
 KERNEL_PHASES = ("conv", "norm", "nms", "wbc")
 
@@ -2873,6 +3128,8 @@ def main() -> None:
         launches["run_train"] = phase_run_train(device)["launches"]
     if "prep" in phases:
         launches["prep"] = phase_prep(device, prepared=train, fed=fed)["launches"]
+    if "cli" in phases:
+        launches["cli"] = phase_cli(device)["launches"]
     if "serve_fused" in phases:
         launches["serve fused"] = phase_serve_fused(device)
     if "train_fused" in phases:
@@ -2900,7 +3157,10 @@ def main() -> None:
                                if "run_train" in launches else {}),
                             **({"prep_launches": {k: v.get(name, 0)
                                                   for k, v in launches["prep"].items()}}
-                               if "prep" in launches else {})})
+                               if "prep" in launches else {}),
+                            **({"cli_launches": {k: v.get(name, 0)
+                                                 for k, v in launches["cli"].items()}}
+                               if "cli" in launches else {})})
         print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,14 @@
 """Stage entry points of the port (counterpart of :mod:`nndetection_tpu.pipeline`):
 preparing a task (:func:`run_prep`: crop, analyze, plan, process), training
 a fold (:func:`run_train`, with its folds, loaders and patch-pool budget),
-and the prediction of a directory of preprocessed cases."""
+the prediction of a directory of preprocessed cases (:func:`predict_dir`),
+then the sweep of a fold's post-processing parameters (:func:`run_sweep`),
+the consolidation of the folds (:func:`run_consolidate`), the validation
+and test predictions and their evaluation.
+
+The directories are the JAX package's: ``raw_splitted -> raw_cropped ->
+preprocessed/{plan}/ -> {model_dir}/fold{k} -> consolidated ->
+test_predictions``."""
 from __future__ import annotations
 
 import os
@@ -42,11 +49,12 @@ SPLIT_SEED = 12345
 DEFAULT_POOL_BYTES = 4 * 1024**3
 
 
-def _process_all(cropped_dir, plan: Plan, case_ids: Sequence[str], plan_dir: Path) -> None:
-    """Process every case for ``plan`` into ``plan_dir/{imagesTr,labelsTr}``,
+def _process_all(cropped_dir, plan: Plan, case_ids: Sequence[str], plan_dir: Path,
+                 split: str = "Tr") -> Path:
+    """Process every case for ``plan`` into ``plan_dir/{images,labels}{split}``,
     re-process any whose ``.npz`` does not load back (a corrupted write),
-    then unpack the ``.npz`` into ``.npy``."""
-    out_images, out_labels = plan_dir / "imagesTr", plan_dir / "labelsTr"
+    then unpack the ``.npz`` into ``.npy``; returns the image directory."""
+    out_images, out_labels = plan_dir / f"images{split}", plan_dir / f"labels{split}"
     kw = dict(target_spacing=np.asarray(plan.target_spacing),
               transpose_forward=plan.transpose_forward,
               normalization_schemes=plan.normalization_schemes,
@@ -60,6 +68,7 @@ def _process_all(cropped_dir, plan: Plan, case_ids: Sequence[str], plan_dir: Pat
         except RuntimeError:  # load_npz_looped's verdict after its retries
             process_case(cropped_dir, out_images, out_labels, cid, **kw)
     unpack_dataset(out_images)
+    return out_images
 
 
 def run_prep(
@@ -326,7 +335,7 @@ def run_train(
         num_epochs_hint=tcfg.max_epochs + tcfg.swa_epochs,
         device=dev,
     )
-    classes = [str(info.labels[k]) for k in sorted(info.labels)]
+    classes = _classes(info)
 
     def _log(epoch, metrics):
         if hasattr(train_loader, "sampling_report"):
@@ -425,3 +434,297 @@ def predict_dir(
             },
             output_dir / f"{cid}_boxes.pkl",
         )
+
+
+def _classes(info: DatasetInfo) -> List[str]:
+    return [str(info.labels[k]) for k in sorted(info.labels)]
+
+
+def _swept_parameters(paths: Sequence[Path]):
+    """``(parameters, mtime)`` of the first ``plan_inference.pkl`` of
+    ``paths`` that exists, ``(None, None)`` when none does."""
+    for path in paths:
+        if path.exists():
+            return load_pickle(path)["parameters"], path.stat().st_mtime
+    return None, None
+
+
+def run_sweep(
+    task_dir,
+    model_dir,
+    fold: int,
+    plan_id: str = "D3V001_3d",
+    tta: bool = True,
+    device: Union[torch.device, str] = "cuda",
+) -> Dict[str, Any]:
+    """Predict the validation split of ``fold`` with its ``model_last.ckpt``
+    into ``fold{fold}/sweep/`` (the ensembler states kept), then sweep the
+    post-processing parameters over those states: ``plan_inference.pkl``
+    and ``sweep_results.json`` in the fold's directory.
+
+    A case already predicted is not predicted again, unless its files are
+    older than the checkpoint: those are deleted first. ``device`` runs the
+    prediction and the sweep's consolidations: the card unless the caller
+    passes another (``"cpu"``)."""
+    from nndetection_tpu_torch.inference.loading import load_model_bundle
+    from nndetection_tpu_torch.inference.sweeper import BoxSweeper
+    from nndetection_tpu_torch.planning.planner import load_plan
+
+    dev = resolve_device(device)
+    task_dir, model_dir = Path(task_dir), Path(model_dir)
+    prep_dir = task_dir / "preprocessed"
+    plan = load_plan(prep_dir / f"{plan_id}.pkl")
+    info = DatasetInfo.from_file(task_dir / "dataset.yaml")
+    fold_dir = model_dir / f"fold{fold}"
+    bundle = load_model_bundle(fold_dir / "model_last.ckpt", name=f"fold{fold}")
+    val_ids = make_splits([], prep_dir / "splits_final.pkl")[fold]["val"]
+
+    sweep_dir = fold_dir / "sweep"
+    # the states are raw detections, so new sweep parameters never make them
+    # stale; a newer checkpoint does
+    ckpt_mtime = (fold_dir / "model_last.ckpt").stat().st_mtime
+    if sweep_dir.exists():
+        for stale in list(sweep_dir.glob("*_boxes.pkl")) + list(
+                sweep_dir.glob("*_boxes_state.pkl")):
+            if stale.stat().st_mtime < ckpt_mtime:
+                stale.unlink()
+    predict_dir([bundle], prep_dir / plan.plan_id / "imagesTr", sweep_dir, case_ids=val_ids,
+                tta=tta, save_state=True, batch_size=plan.batch_size, resume=True, device=dev)
+    sweeper = BoxSweeper(_classes(info), state_dir=sweep_dir,
+                         gt_dir=prep_dir / plan.plan_id / "labelsTr", save_dir=fold_dir,
+                         device=dev)
+    return sweeper.run_postprocessing_sweep()
+
+
+def run_consolidate(
+    task_dir,
+    model_dir,
+    num_folds: int = NUM_FOLDS,
+    plan_id: str = "D3V001_3d",
+    device: Union[torch.device, str] = "cuda",
+) -> Path:
+    """Copy each fold's ``model_last.ckpt`` (as ``model_fold{k}.ckpt``), its
+    sweep states and ``plan.pkl`` into ``model_dir/consolidated/``, then
+    sweep the pooled states there (``plan_inference.pkl``). A checkpoint of
+    either package is copied as it is. ``device`` runs the sweep: the card
+    unless the caller passes another (``"cpu"``)."""
+    import shutil
+
+    from nndetection_tpu_torch.inference.sweeper import BoxSweeper
+    from nndetection_tpu_torch.planning.planner import load_plan
+
+    dev = resolve_device(device)
+    task_dir, model_dir = Path(task_dir), Path(model_dir)
+    out = model_dir / "consolidated"
+    state_dir = out / "sweep_states"
+    state_dir.mkdir(parents=True, exist_ok=True)
+    for fold in range(num_folds):
+        fold_dir = model_dir / f"fold{fold}"
+        ckpt = fold_dir / "model_last.ckpt"
+        if ckpt.exists():
+            shutil.copy(ckpt, out / f"model_fold{fold}.ckpt")
+        for st in (fold_dir / "sweep").glob("*_boxes_state.pkl"):
+            shutil.copy(st, state_dir / st.name)
+        if (fold_dir / "plan.pkl").exists():
+            shutil.copy(fold_dir / "plan.pkl", out / "plan.pkl")
+
+    prep_dir = task_dir / "preprocessed"
+    info = DatasetInfo.from_file(task_dir / "dataset.yaml")
+    plan = load_plan(prep_dir / f"{plan_id}.pkl")
+    if any(state_dir.glob("*_boxes_state.pkl")):
+        BoxSweeper(_classes(info), state_dir=state_dir,
+                   gt_dir=prep_dir / plan.plan_id / "labelsTr", save_dir=out,
+                   device=dev).run_postprocessing_sweep()
+    return out
+
+
+def run_predict_val(
+    task_dir,
+    model_dir,
+    fold: int,
+    plan_id: str = "D3V001_3d",
+    tta: bool = True,
+    restore: bool = True,
+    ensembler: str = "BoxEnsemblerSelective",
+    resume: bool = False,
+    device: Union[torch.device, str] = "cuda",
+) -> Path:
+    """Predict the validation split of ``fold`` with that fold's model into
+    ``fold{fold}/val_predictions/``, restored to the original image
+    geometry (the cross-validation predictions a LUNA-style score pools),
+    with the consolidated swept parameters, else the fold's own.
+
+    With ``resume``, the cases predicted before those parameters were
+    written are predicted again. ``device`` is the card unless the caller
+    passes another (``"cpu"``)."""
+    from nndetection_tpu_torch.inference.loading import load_model_bundle
+    from nndetection_tpu_torch.planning.planner import load_plan
+
+    dev = resolve_device(device)
+    task_dir, model_dir = Path(task_dir), Path(model_dir)
+    prep_dir = task_dir / "preprocessed"
+    plan = load_plan(prep_dir / f"{plan_id}.pkl")
+    fold_dir = model_dir / f"fold{fold}"
+    bundle = load_model_bundle(fold_dir / "model_last.ckpt", name=f"fold{fold}")
+    splits = make_splits([], prep_dir / "splits_final.pkl")
+    params, params_mtime = _swept_parameters(
+        [model_dir / "consolidated" / "plan_inference.pkl", fold_dir / "plan_inference.pkl"])
+    out = fold_dir / "val_predictions"
+    if resume and params_mtime is not None and out.exists():
+        for stale in out.glob("*_boxes.pkl"):
+            if stale.stat().st_mtime < params_mtime:
+                stale.unlink()
+    predict_dir([bundle], prep_dir / plan.plan_id / "imagesTr", out,
+                case_ids=splits[fold]["val"], tta=tta, restore=restore,
+                ensembler_parameters=params, batch_size=plan.batch_size, ensembler=ensembler,
+                resume=resume, device=dev)
+    return out
+
+
+def materialize_val_predictions(
+    task_dir,
+    model_dir,
+    fold: int,
+    plan_id: str = "D3V001_3d",
+    restore: bool = True,
+    device: Union[torch.device, str] = "cuda",
+) -> Path:
+    """The validation predictions of ``fold`` (as :func:`run_predict_val`
+    writes them) from the sweep's saved ensembler states, with no device
+    work: each state consolidated again under the swept parameters
+    (consolidated when present, the fold's own otherwise), the
+    pad-to-min-shape offset undone, then restored to the original image
+    geometry.
+
+    The consolidation stays on the host (float64 WBC), as in the JAX
+    package; ``device`` is checked as every entry point's and the card
+    unless the caller passes another (``"cpu"``)."""
+    from nndetection_tpu_torch.core.boxes.ops_np import box_axis_vector_np
+    from nndetection_tpu_torch.inference.ensembler import BOX_ENSEMBLERS
+    from nndetection_tpu_torch.inference.restore import restore_detection
+    from nndetection_tpu_torch.planning.planner import load_plan
+
+    resolve_device(device)
+    task_dir, model_dir = Path(task_dir), Path(model_dir)
+    prep_dir = task_dir / "preprocessed"
+    plan = load_plan(prep_dir / f"{plan_id}.pkl")
+    fold_dir = model_dir / f"fold{fold}"
+    params, _ = _swept_parameters(
+        [model_dir / "consolidated" / "plan_inference.pkl", fold_dir / "plan_inference.pkl"])
+    out = fold_dir / "val_predictions"
+    out.mkdir(parents=True, exist_ok=True)
+    image_dir = prep_dir / plan.plan_id / "imagesTr"
+    ens_cls = BOX_ENSEMBLERS["BoxEnsemblerSelective"]
+    for state_path in sorted((fold_dir / "sweep").glob("*_boxes_state.pkl")):
+        cid = state_path.name[: -len("_boxes_state.pkl")]
+        t0 = time.time()
+        ens = ens_cls.from_checkpoint(state_path)
+        if params:
+            ens.update_parameters(**params)
+        result = ens.get_case_result()
+        boxes = result["pred_boxes"]
+        # the state's coordinates live in the case padded to the patch
+        npy = image_dir / f"{cid}.npy"
+        shape = (np.load(npy, mmap_mode="r").shape if npy.exists()
+                 else np.load(image_dir / f"{cid}.npz")["data"].shape)
+        lower = np.asarray([max(0, (m - s) // 2) for s, m in zip(shape[1:], plan.patch_size)],
+                           np.int64)
+        if lower.any() and len(boxes):
+            boxes = boxes - box_axis_vector_np(lower.astype(np.float64), plan.dim)[None]
+        props = load_pickle(image_dir / f"{cid}.pkl") if (image_dir / f"{cid}.pkl").exists() \
+            else {}
+        if restore and props:
+            boxes = restore_detection(
+                boxes,
+                transpose_forward=props.get("transpose_forward", [0, 1, 2]),
+                original_spacing=props.get("original_spacing", np.ones(3)),
+                resampled_spacing=props.get("spacing_after_resampling", np.ones(3)),
+                crop_bbox=props.get("crop_bbox"),
+            )
+        save_pickle(
+            {
+                "pred_boxes": boxes,
+                "pred_scores": result["pred_scores"],
+                "pred_labels": result["pred_labels"],
+                "restored": bool(restore and props),
+                "prediction_time_s": time.time() - t0,
+            },
+            out / f"{cid}_boxes.pkl",
+        )
+    return out
+
+
+def run_predict_test(
+    task_dir,
+    model_dir,
+    plan_id: str = "D3V001_3d",
+    tta: bool = True,
+    num_folds: int = NUM_FOLDS,
+    restore: bool = True,
+    ensembler: str = "BoxEnsemblerSelective",
+    device: Union[torch.device, str] = "cuda",
+) -> Path:
+    """Prepare the test split (``raw_splitted/imagesTs``, with
+    ``labelsTs`` when it exists) as the plan's training cases were prepared,
+    into ``raw_cropped_test/`` and ``preprocessed/{plan}/{imagesTs,
+    labelsTs}``, then predict it with every fold's model (the consolidated
+    ones when they exist) under the consolidated swept parameters into
+    ``model_dir/test_predictions/``, restored to the original image
+    geometry. ``device`` is the card unless the caller passes another
+    (``"cpu"``)."""
+    from nndetection_tpu_torch.inference.loading import load_all_models
+    from nndetection_tpu_torch.planning.planner import load_plan
+
+    dev = resolve_device(device)
+    task_dir, model_dir = Path(task_dir), Path(model_dir)
+    prep_dir = task_dir / "preprocessed"
+    plan = load_plan(prep_dir / f"{plan_id}.pkl")
+    info = DatasetInfo.from_file(task_dir / "dataset.yaml")
+    splitted = task_dir / "raw_splitted"
+    test_cases = discover_cases(
+        splitted / "imagesTs",
+        splitted / "labelsTs" if (splitted / "labelsTs").is_dir() else None,
+        info.num_modalities,
+    )
+    cropped = task_dir / "raw_cropped_test"
+    run_cropping(test_cases, cropped)
+    test_images = _process_all(cropped, plan, [c.case_id for c in test_cases],
+                               prep_dir / plan.plan_id, split="Ts")
+
+    bundles = load_all_models(model_dir, num_folds=num_folds)
+    params, _ = _swept_parameters([model_dir / "consolidated" / "plan_inference.pkl"])
+    out = model_dir / "test_predictions"
+    predict_dir(bundles, test_images, out, tta=tta, restore=restore,
+                ensembler_parameters=params, batch_size=plan.batch_size, ensembler=ensembler,
+                device=dev)
+    return out
+
+
+def run_evaluate(
+    task_dir,
+    pred_dir,
+    plan_id: str = "D3V001_3d",
+    split: str = "Ts",
+    save_dir=None,
+    device: Union[torch.device, str] = "cuda",
+):
+    """Box metrics of the predictions in ``pred_dir`` against
+    ``preprocessed/{plan_id}/labels{split}``: restored predictions against
+    the original-geometry GT (``*_boxes_gt_orig.npz``), others against
+    ``*_boxes_gt.npz``; results into ``save_dir`` (``pred_dir`` by default).
+    Returns ``(scores, curves)``. The evaluation runs on the host;
+    ``device`` is checked as every entry point's and the card unless the
+    caller passes another (``"cpu"``)."""
+    from nndetection_tpu_torch.evaluator.registry import evaluate_box_dir
+
+    resolve_device(device)
+    task_dir, pred_dir = Path(task_dir), Path(pred_dir)
+    info = DatasetInfo.from_file(task_dir / "dataset.yaml")
+    gt_dir = task_dir / "preprocessed" / plan_id / f"labels{split}"
+    gt_suffix = "_boxes_gt.npz"
+    sample = next(iter(p for p in sorted(pred_dir.glob("*_boxes.pkl"))
+                       if p.name != "results_boxes.pkl"), None)
+    if sample is not None and load_pickle(sample).get("restored"):
+        gt_suffix = "_boxes_gt_orig.npz"
+    return evaluate_box_dir(pred_dir, gt_dir, _classes(info), save_dir=save_dir or pred_dir,
+                            fast=False, gt_suffix=gt_suffix)

@@ -13,6 +13,16 @@ PKG = Path(nndetection_tpu_torch.__file__).resolve().parent
 SLICE_MODULES = [
     "nndetection_tpu_torch",
     "nndetection_tpu_torch.bridge",
+    "nndetection_tpu_torch.cli",
+    "nndetection_tpu_torch.cli.common",
+    "nndetection_tpu_torch.cli.consolidate",
+    "nndetection_tpu_torch.cli.evaluate",
+    "nndetection_tpu_torch.cli.example",
+    "nndetection_tpu_torch.cli.predict",
+    "nndetection_tpu_torch.cli.prep",
+    "nndetection_tpu_torch.cli.sweep",
+    "nndetection_tpu_torch.cli.train",
+    "nndetection_tpu_torch.cli.utils",
     "nndetection_tpu_torch.core",
     "nndetection_tpu_torch.core.boxes",
     "nndetection_tpu_torch.core.boxes.anchors",
@@ -83,6 +93,8 @@ SLICE_MODULES = [
     "nndetection_tpu_torch.train.trainer",
     "nndetection_tpu_torch.utils",
     "nndetection_tpu_torch.utils.analysis",
+    "nndetection_tpu_torch.utils.check",
+    "nndetection_tpu_torch.utils.config",
     "nndetection_tpu_torch.utils.io",
     "nndetection_tpu_torch.utils.registry",
     "nndetection_tpu_torch.utils.tracking",
