@@ -143,7 +143,22 @@ Phases, each printing its findings:
    parameters), and ``run_predict_val`` on the card against
    ``materialize_val_predictions`` on the host (paired, rtol and atol
    1e-5) checked;
-16. serve fused and train fused: phases 6 (the 140x320x320 case) and 7 under
+16. luna: the LUNA-proxy cross-validation through ``run_proxy_cv``
+   (``projects/Task016_Luna/proxy_cv.py``): 10 generated LUNA16-layout
+   cases at inplane 256 (``.mhd`` + ``.zraw``, ``annotations.csv``), the
+   Task016 converter, ``run_prep`` (4 workers, the probe on the card), fold
+   0 of the 5-fold split trained one epoch of 6 fed steps with 2 validation
+   batches and no SWA, ``run_sweep``, ``run_consolidate(num_folds=1)``,
+   ``materialize_val_predictions``, then the pooled predictions exported as
+   the LUNA CPM csv, scored over fold 0's validation series and evaluated by
+   ``run_evaluate``; seconds, peak memory and kernel launches per stage.
+   Checked: every validation series scored, each CSV row one pooled
+   detection at or above the threshold whose world coordinate maps back
+   through ``world_to_voxel`` to its box centre within 1e-4 voxel, the
+   validation cases' ground-truth boxes exported as predictions scoring a
+   CPM of 1.0, #1-#4 launched in prep and training, #7 in the validation
+   and the sweep, the cluster kernel in the sweep and consolidation;
+17. serve fused and train fused: phases 6 (the 140x320x320 case) and 7 under
    ``NNDET_CONV_FUSED=1``, restored after; #5 must launch 7 times per model
    forward (both convs of stage 0, the second of stages 1-5), so 14 times
    per train step with remat, beside the other kernels.
@@ -153,8 +168,9 @@ that drives it (serve for NMS, train fused for #5, train for the instance
 norm, consolidate for the cluster kernel, NMS mask for #8 and the
 keep-scan; #6, which no path launches, in the kernels phase; each
 kernel's launches in run_train (a) as ``run_train_launches``, and in the
-prep phase's ``run_prep`` and ``run_train`` as ``prep_launches``, and in
-the cli phase's commands as ``cli_launches``), max error,
+prep phase's ``run_prep`` and ``run_train`` as ``prep_launches``, in the
+cli phase's commands as ``cli_launches``, and in the luna phase's stages
+as ``luna_launches``), max error,
 times and bound, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
 non-zero and no result line is printed.
@@ -166,7 +182,8 @@ runs only the phases named (of ``build``, ``kernels``, ``conv``, ``norm``,
 ``nms`` and ``wbc`` (#5's, #1's, #7's and the cluster kernel's checks
 alone), ``reference``, ``forward``, ``serve``, ``consolidate``,
 ``nms_mask``, ``sweep``, ``deploy``, ``train``, ``train_aug``,
-``run_train``, ``prep``, ``cli``, ``serve_fused``, ``train_fused``); the
+``run_train``, ``prep``, ``cli``, ``luna``, ``serve_fused``,
+``train_fused``); the
 device phase always runs, the ``kernels`` JSON line only when every phase
 it reads ran. With no argument every phase but ``conv``, ``norm``, ``nms``
 and ``wbc`` runs (``kernels`` holds them).
@@ -3027,6 +3044,184 @@ def phase_cli(device, n_cases=PREP_CASES, shape=PREP_CASE_SHAPE, n_test=CLI_TEST
     return dict(launches=launches, seconds=seconds, plan=plan)
 
 
+# the luna phase: the LUNA-proxy cross-validation from raw .mhd files to a CPM
+LUNA_CASES = 10
+LUNA_INPLANE = 256
+# the kernels each stage must launch: the probe and the training, the sweep's
+# predictions, the consolidation's sweep
+LUNA_KERNELS = {"prep": TRAIN_KERNELS, "train": RUN_TRAIN_KERNELS, "sweep": PREDICT_KERNELS,
+                "consolidate": CONSOLIDATE_KERNELS}
+# a CSV row's world coordinate mapped back to its box centre, in voxels
+LUNA_ROUND_TRIP_TOL = 1e-4
+
+
+def stage_meter(seconds: dict, peaks: dict, launches: dict, name: str):
+    """A wrapper that records each call's seconds (synchronised), peak
+    device memory (GiB) and kernel launches under ``name``."""
+    from nndetection_tpu_torch.ops import LAUNCHES
+
+    def wrap(fn):
+        def measured(*args, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(LAUNCHES)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+                peaks[name] = max(peaks.get(name, 0.0),
+                                  torch.cuda.max_memory_allocated() / 2 ** 30)
+                delta = launches.setdefault(name, {})
+                for k, v in LAUNCHES.items():
+                    if v - before.get(k, 0):
+                        delta[k] = delta.get(k, 0) + v - before.get(k, 0)
+        return measured
+    return wrap
+
+
+def check_cpm_export(model_dir, labels_dir) -> tuple:
+    """Every row of ``cpm_predictions.csv`` is one pooled detection at or
+    above the export's threshold (0), in the pool's order, with the same
+    probability, and its world coordinate maps back through
+    ``mhd.world_to_voxel`` to the box centre within ``LUNA_ROUND_TRIP_TOL``
+    voxel. Returns (rows, largest round-trip error in voxels)."""
+    import csv
+
+    from nndetection_tpu_torch.data import mhd
+    from nndetection_tpu_torch.utils.io import load_pickle
+
+    with open(model_dir / "cpm_predictions.csv") as f:
+        rows = [(r["seriesuid"], np.asarray([float(r["coordX"]), float(r["coordY"]),
+                                             float(r["coordZ"])]), float(r["probability"]))
+                for r in csv.DictReader(f)]
+    want = []
+    for p in sorted((model_dir / "cv_predictions").glob("*_boxes.pkl")):
+        cid = p.name[: -len("_boxes.pkl")]
+        if not (labels_dir / f"{cid}_geometry.pkl").exists():
+            continue
+        pred = load_pickle(p)
+        for b, s in zip(np.asarray(pred["pred_boxes"], np.float64), pred["pred_scores"]):
+            if s >= 0.0:
+                want.append((cid, np.asarray([(b[0] + b[2]) / 2, (b[1] + b[3]) / 2,
+                                              (b[4] + b[5]) / 2]), float(s)))
+    if [(c, s) for c, _, s in rows] != [(c, s) for c, _, s in want]:
+        raise AssertionError(f"luna: {len(rows)} CSV rows against {len(want)} pooled "
+                             "detections at or above the threshold, or not the same ones")
+    err = 0.0
+    for (cid, world, _), (_, centre, _) in zip(rows, want):
+        geom = load_pickle(labels_dir / f"{cid}_geometry.pkl")
+        back = mhd.world_to_voxel(world, geom["origin"], geom["spacing"])
+        err = max(err, float(np.abs(back - centre).max()))
+    if not err <= LUNA_ROUND_TRIP_TOL:
+        raise AssertionError(f"luna: world coordinates map back {err} voxel from the box centres")
+    return len(rows), err
+
+
+def gt_as_predictions_cpm(task_dir, raw_dir, out_dir, series) -> dict:
+    """The CPM of the ``series``' ground-truth boxes in the original
+    geometry (``labelsTr/*_boxes_gt_orig.npz``) exported as predictions of
+    probability 1."""
+    from nndetection_tpu_torch.projects.Task016_Luna import prepare as task016
+    from nndetection_tpu_torch.utils.io import save_pickle
+
+    gt_dir = task_dir / "preprocessed" / "D3V001_3d" / "labelsTr"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for cid in series:
+        boxes = np.load(gt_dir / f"{cid}_boxes_gt_orig.npz")["boxes"].astype(np.float64)
+        save_pickle({"pred_boxes": boxes, "pred_scores": np.ones(len(boxes), np.float32),
+                     "pred_labels": np.zeros(len(boxes), np.int64), "restored": True},
+                    out_dir / f"{cid}_boxes.pkl")
+    task016.export_cpm(out_dir, task_dir / "raw_splitted" / "labelsTr", out_dir / "gt.csv")
+    return task016.score_cpm(out_dir / "gt.csv", raw_dir / "annotations.csv", series=series)
+
+
+def phase_luna(device, n_cases=LUNA_CASES, inplane=LUNA_INPLANE, steps=6, val_batches=2,
+               num_workers=4, planner=None) -> dict:
+    """The LUNA-proxy cross-validation through ``run_proxy_cv`` on the card:
+    ``n_cases`` generated LUNA16-layout cases of ``inplane``² voxels per
+    slice, converted by Task016, ``run_prep`` (``num_workers`` workers, the
+    planner's probe on the card), fold 0 of the 5-fold split trained one
+    epoch of ``steps`` fed steps with ``val_batches`` validation batches and
+    no SWA, swept, consolidated, its validation predictions materialized,
+    pooled, exported and scored (CPM and ``run_evaluate``). Seconds, peak
+    memory and kernel launches per stage. Checked: every validation series
+    scored, the CSV (:func:`check_cpm_export`), the ground-truth boxes'
+    CPM of 1.0, each stage's kernels (``LUNA_KERNELS``)."""
+    import tempfile
+    from pathlib import Path
+
+    from nndetection_tpu_torch import pipeline
+    from nndetection_tpu_torch.data import luna_proxy
+    from nndetection_tpu_torch.ops import LAUNCHES
+    from nndetection_tpu_torch.projects.Task016_Luna import prepare as task016
+    from nndetection_tpu_torch.projects.Task016_Luna import proxy_cv
+
+    seconds, peaks, launches, scored = {}, {}, {}, []
+    meter = lambda name: stage_meter(seconds, peaks, launches, name)  # noqa: E731
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        with patched(luna_proxy, {"generate_luna_proxy": meter("generate")}), \
+                patched(task016, {"convert": meter("convert")}), \
+                patched(pipeline, {"run_prep": meter("prep"), "run_train": meter("train"),
+                                   "run_sweep": meter("sweep"),
+                                   "run_consolidate": meter("consolidate"),
+                                   "materialize_val_predictions": meter("materialize")}), \
+                patched(proxy_cv, {"pool_and_score": lambda fn: meter("score")(
+                    capturing(scored)(fn))}):
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            result = proxy_cv.run_proxy_cv(
+                root, num_cases=n_cases, inplane=inplane, epochs=1, steps=steps, swa_epochs=0,
+                val_steps=val_batches, warmup=10, folds=[0], device=device, planner=planner,
+                num_workers=num_workers)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            luna_launches = dict(LAUNCHES)
+
+        task_dir = root / proxy_cv.TASK_NAME
+        model_dir = root / "models" / proxy_cv.TASK_NAME / proxy_cv.MODULE
+        series = scored[0]["series"]
+        val_ids = pipeline.make_splits([], task_dir / "preprocessed" / "splits_final.pkl")[0]["val"]
+        cpm = result["cpm"]
+        if scored[0]["missing"] or sorted(val_ids) != series or cpm.get(
+                "num_scans", len(series)) != len(series):
+            raise AssertionError(f"luna: scored {series} ({cpm.get('num_scans')} scans) of the "
+                                 f"validation series {val_ids}; missing {scored[0]['missing']}")
+        n_rows, trip_err = check_cpm_export(model_dir, task_dir / "raw_splitted" / "labelsTr")
+        gt = gt_as_predictions_cpm(task_dir, root / "raw", root / "gt_predictions", series)
+        if gt["cpm"] != 1.0 or not gt.get("num_annotations"):
+            raise AssertionError(f"luna: the ground-truth boxes score {gt}")
+        for stage, kernels in LUNA_KERNELS.items():
+            not_run = [k for k in kernels if launches[stage].get(k, 0) == 0]
+            if not_run:
+                raise AssertionError(f"luna {stage}: kernels never launched: {not_run}")
+        bad = [k for k, v in result["box_eval"].items() if not np.isfinite(v)]
+        if bad or not np.isfinite(cpm["cpm"]):
+            raise AssertionError(f"luna: scores not finite: {bad} {cpm}")
+        epoch = result["fold_final_epochs"][0]
+
+    cfg = result["config"]
+    log(f"[luna] {n_cases} cases at inplane {inplane} through run_proxy_cv in {total:.2f} s; "
+        "seconds per stage: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()))
+    log(f"[luna] plan: patch {cfg['patch_size']}, batch {cfg['batch_size']}, spacing "
+        f"{[round(s, 4) for s in cfg['target_spacing']]}; fold 0: {epoch['steps']:.0f} fed steps "
+        f"{epoch['epoch_time_s']:.3f} s = {epoch['epoch_time_s'] / epoch['steps']:.4f} s/step, "
+        f"val mAP {epoch.get('mAP_IoU_0.10_0.50_0.05_MaxDet_100', float('nan')):.4f}")
+    log(f"[luna] scored {len(series)} validation series {series}: CPM {cpm['cpm']:.4f}, FROC "
+        f"{cpm['froc']}, {cpm.get('num_annotations', 0)} nodules, {cpm.get('num_fps', 0)} FPs; "
+        f"box mAP {result['box_eval'].get('mAP_IoU_0.10_0.50_0.05_MaxDet_100', float('nan'))}")
+    log(f"[luna] CSV: {n_rows} rows, every pooled detection at or above 0, world -> voxel "
+        f"round trip within {trip_err:.2e} voxel; ground-truth boxes as predictions: CPM "
+        f"{gt['cpm']} over {gt['num_annotations']} nodules")
+    log("[luna] peak device memory GiB " + ", ".join(f"{k} {v:.4f}" for k, v in peaks.items()))
+    for stage in seconds:
+        log(f"[luna] kernel launches in {stage}: {launches.get(stage, {})}")
+    log(f"[luna] kernel launches in the whole run: {luna_launches}")
+    return dict(launches=launches, seconds=seconds, result=result)
+
+
 def profile_train_step(trainer, state, targets, out_dir, label="train") -> None:
     """Device time by kernel over one train step (``torch.profiler``), the
     table into ``out_dir/<label>_profile.txt``."""
@@ -3055,7 +3250,7 @@ def profile_train_step(trainer, state, targets, out_dir, label="train") -> None:
 
 PHASES = ("build", "kernels", "conv", "norm", "nms", "wbc", "reference", "forward", "serve",
           "consolidate", "nms_mask", "sweep", "deploy", "train", "train_aug", "run_train",
-          "prep", "cli", "serve_fused", "train_fused")
+          "prep", "cli", "luna", "serve_fused", "train_fused")
 # the checks of one kernel alone, which ``kernels`` includes
 KERNEL_PHASES = ("conv", "norm", "nms", "wbc")
 
@@ -3130,6 +3325,8 @@ def main() -> None:
         launches["prep"] = phase_prep(device, prepared=train, fed=fed)["launches"]
     if "cli" in phases:
         launches["cli"] = phase_cli(device)["launches"]
+    if "luna" in phases:
+        launches["luna"] = phase_luna(device)["launches"]
     if "serve_fused" in phases:
         launches["serve fused"] = phase_serve_fused(device)
     if "train_fused" in phases:
@@ -3160,7 +3357,10 @@ def main() -> None:
                                if "prep" in launches else {}),
                             **({"cli_launches": {k: v.get(name, 0)
                                                  for k, v in launches["cli"].items()}}
-                               if "cli" in launches else {})})
+                               if "cli" in launches else {}),
+                            **({"luna_launches": {k: v.get(name, 0)
+                                                  for k, v in launches["luna"].items()}}
+                               if "luna" in launches else {})})
         print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

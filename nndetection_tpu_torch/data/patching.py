@@ -1,5 +1,5 @@
-"""Sliding-window tiling (copy of the host functions of
-:mod:`nndetection_tpu.data.patching` that whole-case prediction uses).
+"""Sliding-window tiling and safe crop extraction (copy of the host
+functions of :mod:`nndetection_tpu.data.patching`).
 
 The grid is plain index arithmetic on the host: tile origins as an
 ``[T, dim]`` int array, every tile of one fixed patch size.
@@ -64,6 +64,51 @@ def pad_to_min_shape(
     if any(p != (0, 0) for p in pads):
         data = np.pad(data, pads, mode="constant")
     return data, np.asarray(lower, dtype=np.int64)
+
+
+def extract_tile(
+    data: np.ndarray,
+    origin: Sequence[int],
+    patch_size: Sequence[int],
+    spatial_offset: int = 1,
+) -> np.ndarray:
+    """Slice a fixed-size tile at ``origin`` (origins must be in-bounds)."""
+    sl = [slice(None)] * spatial_offset
+    for o, p in zip(origin, patch_size):
+        sl.append(slice(int(o), int(o) + int(p)))
+    return data[tuple(sl)]
+
+
+def save_get_crop(
+    data: np.ndarray,
+    origin: Sequence[int],
+    patch_size: Sequence[int],
+    spatial_offset: int = 1,
+    mode: str = "shift",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Safe crop extraction (``patching.py:304-457``).
+
+    ``shift`` mode moves the origin into bounds; ``pad`` mode zero-pads out-of-
+    bounds regions. Returns the crop and its effective origin in case coords.
+    """
+    spatial = data.shape[spatial_offset:]
+    origin = np.asarray(origin, dtype=np.int64)
+    patch = np.asarray(patch_size, dtype=np.int64)
+    if mode == "shift":
+        shifted = np.clip(origin, 0, np.maximum(0, np.asarray(spatial) - patch))
+        return extract_tile(data, shifted, patch, spatial_offset), shifted
+    # pad mode
+    lo = np.maximum(origin, 0)
+    hi = np.minimum(origin + patch, spatial)
+    sl = [slice(None)] * spatial_offset + [
+        slice(int(a), int(b)) for a, b in zip(lo, hi)
+    ]
+    crop = data[tuple(sl)]
+    pads = [(0, 0)] * spatial_offset + [
+        (int(max(0, -o)), int(max(0, (o + p) - s)))
+        for o, p, s in zip(origin, patch, spatial)
+    ]
+    return np.pad(crop, pads, mode="constant"), origin
 
 
 def tile_weight_map(

@@ -11,6 +11,8 @@ preprocessed/{plan}/ -> {model_dir}/fold{k} -> consolidated ->
 test_predictions``."""
 from __future__ import annotations
 
+import functools
+import multiprocessing as mp
 import os
 import time
 from pathlib import Path
@@ -50,18 +52,24 @@ DEFAULT_POOL_BYTES = 4 * 1024**3
 
 
 def _process_all(cropped_dir, plan: Plan, case_ids: Sequence[str], plan_dir: Path,
-                 split: str = "Tr") -> Path:
-    """Process every case for ``plan`` into ``plan_dir/{images,labels}{split}``,
-    re-process any whose ``.npz`` does not load back (a corrupted write),
-    then unpack the ``.npz`` into ``.npy``; returns the image directory."""
+                 split: str = "Tr", num_workers: int = 0) -> Path:
+    """Process every case for ``plan`` into ``plan_dir/{images,labels}{split}``
+    (in ``num_workers`` host processes, none for 0), re-process any whose
+    ``.npz`` does not load back (a corrupted write), then unpack the
+    ``.npz`` into ``.npy``; returns the image directory."""
     out_images, out_labels = plan_dir / f"images{split}", plan_dir / f"labels{split}"
     kw = dict(target_spacing=np.asarray(plan.target_spacing),
               transpose_forward=plan.transpose_forward,
               normalization_schemes=plan.normalization_schemes,
               intensity_properties=plan.intensity_properties,
               use_nonzero_mask=plan.use_nonzero_mask)
-    for cid in case_ids:
-        process_case(cropped_dir, out_images, out_labels, cid, **kw)
+    if num_workers > 0:
+        with mp.Pool(num_workers) as pool:
+            pool.starmap(functools.partial(process_case, **kw),
+                         [(cropped_dir, out_images, out_labels, cid) for cid in case_ids])
+    else:
+        for cid in case_ids:
+            process_case(cropped_dir, out_images, out_labels, cid, **kw)
     for cid in case_ids:
         try:
             load_npz_looped(out_images / f"{cid}.npz", keys=["data"])
@@ -85,7 +93,8 @@ def run_prep(
     labelsTr}/`` and ``preprocessed/splits_final.pkl``), with the ``3dlr1``
     low-resolution plan when the largest objects exceed the patch.
 
-    Cropping and analysis run in ``num_workers`` host processes (none for 0);
+    Cropping, analysis and processing run in ``num_workers`` host processes
+    (none for 0);
     everything but the planner's probe runs on the host. ``planner``
     defaults to ``Planner(device=device)``: 0.85 x the card's memory, the
     plan confirmed by the train step run on the card. ``device`` is the card
@@ -110,12 +119,13 @@ def run_prep(
     planner = planner or Planner(device=dev)
     plan = planner.plan_experiment(props, info)
     save_pickle(plan, prep_dir / f"{plan.plan_id}.pkl")
-    _process_all(cropped_dir, plan, case_ids, prep_dir / plan.plan_id)
+    _process_all(cropped_dir, plan, case_ids, prep_dir / plan.plan_id, num_workers=num_workers)
 
     if plan.requires_lowres:
         plan_lr = planner.plan_lowres(plan, props, info)
         save_pickle(plan_lr, prep_dir / f"{plan_lr.plan_id}.pkl")
-        _process_all(cropped_dir, plan_lr, case_ids, prep_dir / plan_lr.plan_id)
+        _process_all(cropped_dir, plan_lr, case_ids, prep_dir / plan_lr.plan_id,
+                     num_workers=num_workers)
 
     make_splits(case_ids, prep_dir / "splits_final.pkl")
     return plan

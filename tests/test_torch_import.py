@@ -16,8 +16,10 @@ SLICE_MODULES = [
     "nndetection_tpu_torch.cli",
     "nndetection_tpu_torch.cli.common",
     "nndetection_tpu_torch.cli.consolidate",
+    "nndetection_tpu_torch.cli.convert",
     "nndetection_tpu_torch.cli.evaluate",
     "nndetection_tpu_torch.cli.example",
+    "nndetection_tpu_torch.cli.nnunet_interop",
     "nndetection_tpu_torch.cli.predict",
     "nndetection_tpu_torch.cli.prep",
     "nndetection_tpu_torch.cli.sweep",
@@ -38,13 +40,18 @@ SLICE_MODULES = [
     "nndetection_tpu_torch.data.augment",
     "nndetection_tpu_torch.data.crop",
     "nndetection_tpu_torch.data.dataset",
+    "nndetection_tpu_torch.data.dicom",
     "nndetection_tpu_torch.data.example",
     "nndetection_tpu_torch.data.gt_prep",
     "nndetection_tpu_torch.data.instances",
     "nndetection_tpu_torch.data.loader",
+    "nndetection_tpu_torch.data.luna_proxy",
+    "nndetection_tpu_torch.data.mhd",
     "nndetection_tpu_torch.data.nifti",
     "nndetection_tpu_torch.data.normalize",
+    "nndetection_tpu_torch.data.nrrd",
     "nndetection_tpu_torch.data.patching",
+    "nndetection_tpu_torch.data.prepare",
     "nndetection_tpu_torch.data.preprocess",
     "nndetection_tpu_torch.data.resample",
     "nndetection_tpu_torch.evaluator",
@@ -88,6 +95,25 @@ SLICE_MODULES = [
     "nndetection_tpu_torch.planning.architecture",
     "nndetection_tpu_torch.planning.estimator",
     "nndetection_tpu_torch.planning.planner",
+    "nndetection_tpu_torch.projects",
+    "nndetection_tpu_torch.projects.Task011_Kits",
+    "nndetection_tpu_torch.projects.Task011_Kits.prepare",
+    "nndetection_tpu_torch.projects.Task012_LIDC",
+    "nndetection_tpu_torch.projects.Task012_LIDC.prepare",
+    "nndetection_tpu_torch.projects.Task016_Luna",
+    "nndetection_tpu_torch.projects.Task016_Luna.prepare",
+    "nndetection_tpu_torch.projects.Task016_Luna.proxy_cv",
+    "nndetection_tpu_torch.projects.Task017_CADA",
+    "nndetection_tpu_torch.projects.Task017_CADA.prepare",
+    "nndetection_tpu_torch.projects.Task019_ADAM",
+    "nndetection_tpu_torch.projects.Task019_ADAM.prepare",
+    "nndetection_tpu_torch.projects.Task020_RibFrac",
+    "nndetection_tpu_torch.projects.Task020_RibFrac.prepare",
+    "nndetection_tpu_torch.projects.Task021_ProstateX",
+    "nndetection_tpu_torch.projects.Task021_ProstateX.prepare",
+    "nndetection_tpu_torch.projects.Task025_LymphNodes",
+    "nndetection_tpu_torch.projects.Task025_LymphNodes.prepare",
+    "nndetection_tpu_torch.projects.decathlon_converter",
     "nndetection_tpu_torch.train",
     "nndetection_tpu_torch.train.lr",
     "nndetection_tpu_torch.train.trainer",
