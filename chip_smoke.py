@@ -158,7 +158,23 @@ Phases, each printing its findings:
    validation cases' ground-truth boxes exported as predictions scoring a
    CPM of 1.0, #1-#4 launched in prep and training, #7 in the validation
    and the sweep, the cluster kernel in the sweep and consolidation;
-17. serve fused and train fused: phases 6 (the 140x320x320 case) and 7 under
+17. 2d: a raw 2D task written by ``data/example.py`` with the 2D planning
+   test's geometry (24 + 4 seeded 512x480 cases at 0.7 x 0.7 mm, one object
+   each, two classes) through ``run_prep`` (4 workers, the probe on the
+   card), ``run_train`` (fold 0, one epoch of 6 fed steps, 2 validation
+   batches, no SWA), ``run_sweep``, ``run_consolidate(num_folds=1)``,
+   ``run_predict_test`` (4 flips) and ``run_evaluate``: the plan (patch,
+   batch, stages, channels, remat), seconds per stage, s/step, peak memory
+   and the launches of #1-#4, #7 and the cluster kernel, each stage's
+   kernels checked; then #7 and the cluster kernel on 2D boxes (lifted to
+   unit depth by their wrappers) bit for bit against their plain versions
+   on the card, at the largest call of each in those predictions and at a
+   seeded 1000-box input with tied scores; #1-#4 at the 2D plan's stage
+   shapes; the tiny float32 2D model card vs CPU (as phase 4, 4 flips);
+   one deep-supervision train phase on the LUNA plan (batch 8, bf16:
+   losses finite, the instance-norm kernels launched) and a tiny float32
+   deep-supervision step card vs CPU;
+18. serve fused and train fused: phases 6 (the 140x320x320 case) and 7 under
    ``NNDET_CONV_FUSED=1``, restored after; #5 must launch 7 times per model
    forward (both convs of stage 0, the second of stages 1-5), so 14 times
    per train step with remat, beside the other kernels.
@@ -169,8 +185,8 @@ norm, consolidate for the cluster kernel, NMS mask for #8 and the
 keep-scan; #6, which no path launches, in the kernels phase; each
 kernel's launches in run_train (a) as ``run_train_launches``, and in the
 prep phase's ``run_prep`` and ``run_train`` as ``prep_launches``, in the
-cli phase's commands as ``cli_launches``, and in the luna phase's stages
-as ``luna_launches``), max error,
+cli phase's commands as ``cli_launches``, in the luna phase's stages
+as ``luna_launches``, and in the 2d phase's stages as ``2d_launches``), max error,
 times and bound, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
 non-zero and no result line is printed.
@@ -182,7 +198,7 @@ runs only the phases named (of ``build``, ``kernels``, ``conv``, ``norm``,
 ``nms`` and ``wbc`` (#5's, #1's, #7's and the cluster kernel's checks
 alone), ``reference``, ``forward``, ``serve``, ``consolidate``,
 ``nms_mask``, ``sweep``, ``deploy``, ``train``, ``train_aug``,
-``run_train``, ``prep``, ``cli``, ``luna``, ``serve_fused``,
+``run_train``, ``prep``, ``cli``, ``luna``, ``2d``, ``serve_fused``,
 ``train_fused``); the
 device phase always runs, the ``kernels`` JSON line only when every phase
 it reads ran. With no argument every phase but ``conv``, ``norm``, ``nms``
@@ -1104,19 +1120,22 @@ def spread(model, scale=100.0):
     return model
 
 
-def phase_reference(device) -> None:
-    """The tiny float32 model on the card against the CPU (plain kernels,
-    CPU convolutions), TF32 off."""
+def phase_reference(device, cfg=None, case_shape=(48, 48, 48), label="tiny float32") -> None:
+    """The tiny float32 model (``cfg``, default :func:`tiny_cfg`) on the card
+    against the CPU (plain kernels, CPU convolutions), TF32 off: forward,
+    post-processing, ``predict_case`` of a ``case_shape`` case without and
+    with TTA, one train step."""
     from nndetection_tpu_torch.inference.predictor import ModelBundle, Predictor
     from nndetection_tpu_torch.models.retina_unet import RetinaUNet, batched_postprocess
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = tiny_cfg()
+    cfg = cfg or tiny_cfg()
     cpu_model = spread(RetinaUNet(cfg, torch.Generator().manual_seed(0)).eval())
     dev_model = RetinaUNet(cfg).to(device).eval()
     dev_model.load_state_dict(cpu_model.state_dict())
-    x = torch.from_numpy(np.random.RandomState(1).standard_normal((2, 32, 32, 32, 1)).astype(np.float32))
+    x = torch.from_numpy(np.random.RandomState(1).standard_normal(
+        (2, *cfg.patch_size, 1)).astype(np.float32))
     with torch.inference_mode():
         want = cpu_model(x)
         got = dev_model(x.to(device))
@@ -1131,7 +1150,7 @@ def phase_reference(device) -> None:
             if not torch.equal(pg[k].cpu(), pw[k]):
                 raise AssertionError(f"reference postprocess {k} differs")
         errs["post_boxes"] = check_close("reference boxes", pg["boxes"].cpu(), pw["boxes"], 0, 1e-4)
-    case = np.random.RandomState(3).standard_normal((1, 48, 48, 48)).astype(np.float32)
+    case = np.random.RandomState(3).standard_normal((1, *case_shape)).astype(np.float32)
     bundle = [ModelBundle(cfg=cfg, params=cpu_model.state_dict())]
     for tta in (False, True):
         rc = Predictor(bundle, tta=tta, device="cpu").predict_case(case)
@@ -1139,13 +1158,11 @@ def phase_reference(device) -> None:
         if len(rc["pred_scores"]) != len(rg["pred_scores"]) or not len(rc["pred_scores"]):
             raise AssertionError(f"reference predict_case tta={tta}: {len(rg['pred_scores'])} "
                                  f"detections on the card, {len(rc['pred_scores'])} on the CPU")
-        oc, og = np.argsort(-rc["pred_scores"], kind="stable"), np.argsort(-rg["pred_scores"], kind="stable")
-        errs[f"case_tta{int(tta)}"] = max(
-            check_close("case boxes", torch.from_numpy(rg["pred_boxes"][og]), torch.from_numpy(rc["pred_boxes"][oc]), 0, 1e-3),
-            check_close("case scores", torch.from_numpy(rg["pred_scores"][og]), torch.from_numpy(rc["pred_scores"][oc]), 0, 1e-3))
-    log("[reference] tiny float32 model, card vs CPU (TF32 off), max abs err: "
+        # as sets: equal scores may list their detections in another order
+        errs[f"case_tta{int(tta)}"] = paired_max_err(f"{label} case tta={tta}", rg, rc, 0, 1e-3)
+    log(f"[reference] {label} model, card vs CPU (TF32 off), max abs err: "
         + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
-    reference_train_step(device, cfg, cpu_model.state_dict())
+    reference_train_step(device, cfg, cpu_model.state_dict(), label=label)
 
 
 @contextlib.contextmanager
@@ -1229,13 +1246,14 @@ def fused_function_check(device, layers=TINY_FUSED_LAYERS) -> None:
 
 
 def instance_batch(rng, batch, patch, max_inst=8):
-    """A seeded raw batch as ``bench.py:62-76`` makes it: one cube of
-    instance id 1 per image around a random centre, class 0, noise images."""
+    """A seeded raw batch as ``bench.py:62-76`` makes it: one cube (a square
+    in 2D) of instance id 1 per image around a random centre, class 0, noise
+    images."""
     seg = np.zeros((batch, *patch), np.int32)
     for b in range(batch):
         c = [rng.randint(12, g - 12) for g in patch]
         r = rng.randint(3, 8)
-        seg[b, c[0] - r:c[0] + r, c[1] - r:c[1] + r, c[2] - r:c[2] + r] = 1
+        seg[(b, *(slice(ci - r, ci + r) for ci in c))] = 1
     table = np.full((batch, max_inst), -1, np.int32)
     table[:, 0] = 0
     images = rng.standard_normal((batch, *patch, 1)).astype(np.float32)
@@ -2000,17 +2018,17 @@ def phase_serve_fused(device, cases=(((140, 320, 320), False),), patch=(96, 128,
 
 
 def phase_train(device, patch=(96, 128, 128), batch=8, warmup=2, steps=5,
-                profile_dir=None, label="train", required=TRAIN_KERNELS) -> dict:
-    """``Trainer.train_epoch`` on the LUNA plan: ``warmup`` steps, then
-    ``steps`` timed ones; the launch counts cover both."""
+                profile_dir=None, label="train", required=TRAIN_KERNELS, cfg=None) -> dict:
+    """``Trainer.train_epoch`` on the LUNA plan (or ``cfg``): ``warmup``
+    steps, then ``steps`` timed ones; the launch counts cover both."""
     from nndetection_tpu_torch.ops import LAUNCHES
     from nndetection_tpu_torch.train.trainer import Trainer, TrainerConfig
 
-    cfg = luna_cfg(patch)
+    cfg = cfg or luna_cfg(patch)
     trainer = Trainer(cfg, TrainerConfig(batch_size=batch, warm_iterations=10), device)
     state = trainer.init_state(rng_seed=0)
     before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
-    targets = train_targets(device, batch, patch)
+    targets = train_targets(device, batch, cfg.patch_size)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
@@ -2036,7 +2054,8 @@ def phase_train(device, patch=(96, 128, 128), batch=8, warmup=2, steps=5,
     changed = sum(not torch.equal(p, before[n]) for n, p in state.model.named_parameters())
     if changed == 0:
         raise AssertionError(f"{label}: no parameter changed")
-    log(f"[{label}] LUNA plan patch {patch} batch {batch} bf16 remat={cfg.remat}: "
+    log(f"[{label}] LUNA plan patch {cfg.patch_size} batch {batch} {cfg.dtype} remat={cfg.remat}"
+        f"{', deep supervision' if cfg.segmenter_deep_supervision else ''}: "
         f"first {warmup} steps {t1 - t0:.2f} s; {steps} steps {seconds:.3f} s = "
         f"{seconds / steps:.4f} s/step, {steps * batch / seconds:.2f} patches/s; "
         f"peak device memory {peak:.2f} GiB; losses "
@@ -3222,6 +3241,261 @@ def phase_luna(device, n_cases=LUNA_CASES, inplane=LUNA_INPLANE, steps=6, val_ba
     return dict(launches=launches, seconds=seconds, result=result)
 
 
+# the 2d phase: a raw 2D task of data/example.py with the geometry of the
+# planning test's 2D case (tests/test_torch_planning.py: 0.7 x 0.7 mm,
+# 512 x 480), from raw images to scores on the card
+TWOD_TASK = "Task103_Example2D"
+TWOD_IMAGE = (512, 480)
+TWOD_SPACING = (0.7, 0.7)
+TWOD_TRAIN, TWOD_TEST = 24, 4
+TWOD_OBJECT_SIZE = (16, 64)  # pixels: 11-45 mm at 0.7 mm
+TWOD_OBJECT_WIDTH = 4  # the wall of a hollow square, pixels
+# the kernels each stage must launch: the probe, the training, the sweep's
+# and the test split's predictions, the consolidation's sweep
+TWOD_KERNELS = {"prep": TRAIN_KERNELS, "train": RUN_TRAIN_KERNELS, "sweep": PREDICT_KERNELS,
+                "consolidate": CONSOLIDATE_KERNELS, "predict": PREDICT_KERNELS}
+TWOD_REPORTED = TRAIN_KERNELS + ("nms_topk", "wbc_cluster")
+
+
+def tiny_cfg_2d(**overrides):
+    """The tiny float32 model in 2D: 4 stages, patch 64 x 64."""
+    from nndetection_tpu_torch.models.retina_unet import RetinaUNetConfig
+
+    return RetinaUNetConfig(**{**dict(
+        dim=2, conv_kernels=((3, 3),) * 4, strides=((2, 2),) * 3, decoder_levels=(1, 2, 3),
+        patch_size=(64, 64), anchor_width=((4, 8),) * 3, anchor_height=((4, 8),) * 3,
+        anchor_depth=None, start_channels=8, fpn_channels=16, head_channels=16,
+        topk_candidates=500, detections_per_img=20, dtype="float32"), **overrides})
+
+
+def largest_call(calls: list, size):
+    """A wrapper that keeps in ``calls[0]`` the arguments of the call with
+    the largest ``size(args)``, cloned."""
+    def wrap(fn):
+        def call(*args):
+            if not calls or size(args) > size(calls[0]):
+                calls[:] = [tuple(a.clone() if torch.is_tensor(a) else a for a in args)]
+            return fn(*args)
+        return call
+    return wrap
+
+
+def lifted_kernel_checks(device, nms_call, wbc_call, reps=10) -> dict:
+    """#7 and the cluster kernel on 2D boxes (lifted to unit depth by their
+    wrappers) against their plain versions on the card on the lifted boxes,
+    bit for bit: the largest call of each in the 2d phase's predictions,
+    and a seeded input of 1000 boxes with scores tied to 8 levels. Returns
+    the kernels' device times at the real calls."""
+    from nndetection_tpu_torch.ops import LAUNCHES, lift_2d
+    from nndetection_tpu_torch.ops.nms import nms_topk, nms_topk_plain
+    from nndetection_tpu_torch.ops.wbc_cluster import wbc_cluster, wbc_cluster_plain
+
+    rng = np.random.RandomState(21)
+    boxes, scores = nms_boxes(rng, 4, 1000)
+    nms_cases = [("real", nms_call),
+                 ("seeded 4 x 1000, 8-level scores",
+                  (boxes[..., :4].contiguous().to(device),
+                   ((scores * 8).floor() / 8).to(device), 0.5, 100))]
+    seeded = wbc_inputs(rng, 1000, 2)
+    seeded[0] = seeded[0][:, :4].contiguous()
+    seeded[1] = (seeded[1] * 8).floor() / 8
+    wbc_cases = [("real", wbc_call),
+                 ("seeded 1000 x 2 classes, 8-level scores",
+                  tuple(t.to(device) for t in seeded) + (2, 0.5, 0.0, 1.0))]
+    out = {}
+    for label, (b, sc, thr, max_out) in nms_cases:
+        if b.shape[-1] != 4:
+            raise AssertionError(f"2d nms_topk {label}: boxes {tuple(b.shape)}, not 2D")
+        n0 = LAUNCHES["nms_topk"]
+        idx, valid = nms_topk(b, sc, thr, max_out)
+        torch.cuda.synchronize()
+        steps = min(max_out, b.shape[1])
+        p_idx, p_valid = nms_topk_plain(lift_2d(b), sc, thr, steps)
+        if LAUNCHES["nms_topk"] != n0 + 1 or not (
+                torch.equal(idx[:, :steps], p_idx.long()) and torch.equal(valid[:, :steps], p_valid)
+                and not valid[:, steps:].any()):
+            raise AssertionError(f"2d nms_topk {label}: not one launch, or indices or flags "
+                                 "differ from the plain version on the lifted boxes")
+        ms = median_ms(lambda: nms_topk(b, sc, thr, max_out), reps)
+        log(f"[2d] nms_topk {label}: {b.shape[0]} images x {b.shape[1]} 2D boxes, max_out "
+            f"{max_out}, threshold {thr}: {int(valid.sum())} kept, bits equal to the plain "
+            f"version on the card; {ms:.4f} ms")
+        out[f"nms_topk {label}"] = ms
+    for label, args in wbc_cases:
+        b, rest = args[0], args[6:]
+        if b.shape[-1] != 4:
+            raise AssertionError(f"2d wbc_cluster {label}: boxes {tuple(b.shape)}, not 2D")
+        n0 = LAUNCHES["wbc_cluster"]
+        got = wbc_cluster(*args)
+        torch.cuda.synchronize()
+        want = wbc_cluster_plain(lift_2d(b), *args[1:])
+        want = (want[0][..., :4], want[1], want[2])
+        if LAUNCHES["wbc_cluster"] != n0 + 1 or not all(
+                torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"2d wbc_cluster {label}: not one launch, or outputs differ "
+                                 "from the plain version on the lifted boxes")
+        ms = median_ms(lambda: wbc_cluster(*args), reps)
+        log(f"[2d] wbc_cluster {label}: {b.shape[0]} 2D boxes x {rest[0]} classes, iou "
+            f"{rest[1]}: {int(got[2].sum())} clusters emitted, bits equal to the plain version "
+            f"on the card; {ms:.4f} ms")
+        out[f"wbc_cluster {label}"] = ms
+    return out
+
+
+def norm_checks_2d(device, cfg, batch, reps=5) -> float:
+    """#1-#4 against their plain versions at the 2D plan's encoder stage
+    shapes, ``[batch, H, W, C]`` bf16, every row (the 2D default schedule):
+    in_stats within ``TOL["in_stats"]``, the apply and the two gradient
+    kernels within their bf16 tolerances. Returns the largest error."""
+    from nndetection_tpu_torch.models.encoder import encoder_channels, encoder_strides
+    from nndetection_tpu_torch.ops.instance_norm import (
+        in_apply, in_apply_plain, in_stats, in_stats_plain, plane_schedule)
+
+    channels = encoder_channels(cfg.num_levels, cfg.start_channels, cfg.max_channels)
+    strides = encoder_strides(cfg.num_levels, cfg.strides, cfg.dim)
+    gd = torch.Generator(device=device).manual_seed(6)
+    worst, shapes = 0.0, []
+    for c, st in zip(channels, strides):
+        h, w = (-(-p // s) for p, s in zip(cfg.patch_size, st))
+        shape = (batch, h, w, c)
+        x4 = (torch.randn(shape, generator=gd, device=device) * 2 + 1).to(torch.bfloat16)
+        dy4 = torch.randn(shape, generator=gd, device=device).to(torch.bfloat16)
+        gamma = torch.rand(c, generator=gd, device=device) + 0.5
+        beta = torch.randn(c, generator=gd, device=device)
+        start, step = plane_schedule(h, None)
+        mean, var = in_stats(x4, start, step)
+        pmean, pvar = in_stats_plain(x4, start, step)
+        worst = max(worst, check_close(f"2d in_stats {list(shape)} mean", mean, pmean,
+                                       **TOL["in_stats"]),
+                    check_close(f"2d in_stats {list(shape)} var", var, pvar, **TOL["in_stats"]),
+                    check_close(f"2d in_apply {list(shape)}", in_apply(x4, pmean, pvar, gamma, beta),
+                                in_apply_plain(x4, pmean, pvar, gamma, beta),
+                                **TOL["in_apply_bf16"]))
+        errs, _ = _grad_kernels(x4, dy4, gamma, start, step, reps)
+        worst = max([worst, *errs.values()])
+        shapes.append(list(shape))
+    log(f"[2d] #1-#4 at the 2D plan's stage shapes {shapes} bf16, every row: within their "
+        f"tolerances, largest error {worst:.2e}")
+    return worst
+
+
+def phase_2d(device, image=TWOD_IMAGE, n_train=TWOD_TRAIN, n_test=TWOD_TEST, steps=6,
+             val_batches=2, num_workers=4, planner=None, ds_batch=8) -> dict:
+    """A raw 2D task to scores on the card, then the 2D kernels' checks, the
+    tiny 2D model card vs CPU, and the deep-supervision segmenter.
+
+    ``data/example.py`` writes ``n_train`` + ``n_test`` seeded ``image``
+    cases at ``TWOD_SPACING`` mm, one object each (a square or a hollow
+    square: two classes); ``run_prep`` (``num_workers`` workers, the
+    planner's probe on the card) -> ``run_train`` (fold 0, one epoch of
+    ``steps`` fed steps, ``val_batches`` validation batches, no SWA) ->
+    ``run_sweep`` -> ``run_consolidate(num_folds=1)`` ->
+    ``run_predict_test`` (4 flips) -> ``run_evaluate``: the plan, seconds per
+    stage, s/step, peak memory, and the launches of #1-#4, #7 and the
+    cluster kernel, each stage's kernels (``TWOD_KERNELS``) checked. Then
+    :func:`lifted_kernel_checks` on the largest NMS and cluster calls of the
+    predictions, :func:`norm_checks_2d` at the plan's stage shapes,
+    :func:`phase_reference` on :func:`tiny_cfg_2d`, one deep-supervision
+    train phase on the LUNA plan at ``ds_batch`` (bf16) and a tiny float32
+    deep-supervision step card vs CPU."""
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    from nndetection_tpu_torch import pipeline
+    from nndetection_tpu_torch.core.boxes import nms as core_nms
+    from nndetection_tpu_torch.core.boxes import wbc as core_wbc
+    from nndetection_tpu_torch.data.example import generate_example_dataset
+    from nndetection_tpu_torch.inference.tta import get_tta_flips
+    from nndetection_tpu_torch.models.encoder import encoder_channels
+    from nndetection_tpu_torch.models.retina_unet import RetinaUNet
+    from nndetection_tpu_torch.modules import RetinaUNetV001
+    from nndetection_tpu_torch.planning import planner as planner_mod
+    from nndetection_tpu_torch.utils.io import load_pickle
+
+    seconds, peaks, launches, probes = {}, {}, {}, []
+    meter = lambda name: stage_meter(seconds, peaks, launches, name)  # noqa: E731
+    nms_calls, wbc_calls = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        task = generate_example_dataset(
+            root / TWOD_TASK, num_train=n_train, num_test=n_test, image_size=image,
+            object_size=TWOD_OBJECT_SIZE, object_width=TWOD_OBJECT_WIDTH, spacing=TWOD_SPACING)
+        seconds["write"] = time.perf_counter() - t0
+        model_dir = root / "models" / TWOD_TASK / "RetinaUNetV001"
+        t0 = time.perf_counter()
+        with patched(planner_mod, {"probe_train_step_estimate": recording_probe(probes)}):
+            plan = meter("prep")(pipeline.run_prep)(task, num_workers=num_workers,
+                                                    planner=planner, device=device)
+        if plan.dim != 2 or len(plan.patch_size) != 2:
+            raise AssertionError(f"2d: a {plan.dim}D plan, patch {plan.patch_size}")
+        r = run_train_once(device, task, model_dir, steps, val_batches)
+        seconds["train"], peaks["train"], launches["train"] = r["wall"], r["peak_gib"], r["launches"]
+        by_images = lambda a: a[1].numel()  # noqa: E731
+        with patched(core_nms, {"nms_topk": largest_call(nms_calls, by_images)}), \
+                patched(core_wbc, {"wbc_cluster": largest_call(wbc_calls, by_images)}):
+            meter("sweep")(pipeline.run_sweep)(task, model_dir, 0, device=device)
+            meter("consolidate")(pipeline.run_consolidate)(task, model_dir, num_folds=1,
+                                                           device=device)
+            pred_dir = meter("predict")(pipeline.run_predict_test)(task, model_dir, device=device)
+        preds = sorted(pred_dir.glob("*_boxes.pkl"))
+        boxes_per_case = [load_pickle(p)["pred_boxes"].shape for p in preds]
+        metrics, _ = meter("evaluate")(pipeline.run_evaluate)(task, pred_dir, split="Ts",
+                                                              device=device)
+        total = time.perf_counter() - t0
+    cfg = RetinaUNetV001.model_config(plan)
+    key = "mAP_IoU_0.10_0.50_0.05_MaxDet_100"
+    if len(preds) != n_test or any(len(s) != 2 or s[1] != 4 for s in boxes_per_case):
+        raise AssertionError(f"2d: predictions {boxes_per_case} for {n_test} test cases")
+    if not np.isfinite(metrics[key]):
+        raise AssertionError(f"2d: {key} {metrics[key]}")
+    for stage, kernels in TWOD_KERNELS.items():
+        not_run = [k for k in kernels if launches[stage].get(k, 0) == 0]
+        if not_run:
+            raise AssertionError(f"2d {stage}: kernels never launched: {not_run}")
+    flips = len(get_tta_flips(2))
+    if flips != 4 or nms_calls[0][1].shape[0] % flips:
+        raise AssertionError(f"2d: {flips} flips, NMS over {nms_calls[0][1].shape[0]} images")
+    totals = {k: sum(v.get(k, 0) for v in launches.values()) for k in TWOD_REPORTED}
+
+    log(f"[2d] raw task: {n_train} + {n_test} seeded cases {list(image)} at {TWOD_SPACING} mm "
+        f"(data/example.py: one object each, two classes), written in {seconds['write']:.2f} "
+        f"s; run_prep to run_evaluate {total:.2f} s")
+    log(f"[2d] plan: patch {plan.patch_size}, batch {plan.batch_size}, {cfg.num_levels} stages, "
+        f"channels {encoder_channels(cfg.num_levels, cfg.start_channels, cfg.max_channels)}, "
+        f"pool strides {plan.pool_strides}, decoder levels {list(plan.decoder_levels)}, "
+        f"remat={plan.remat}, target spacing {plan.target_spacing}, anchors {plan.anchors}, "
+        f"mem_compiled_bytes {plan.mem_compiled_bytes} ({plan.mem_compiled_bytes / 2 ** 30:.4f} GiB)")
+    for p in probes:
+        log(f"[2d] probe: batch {p['batch']} remat={p['remat']} patch {list(p['patch'])}: "
+            f"{p['est'].total_bytes / 2 ** 30:.4f} GiB, {p['est'].breakdown['step_ms']:.2f} "
+            f"ms/step (probe call {p['s']:.2f} s)")
+    log("[2d] seconds per stage: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+        + f"; train {r['m']['steps']} fed steps {r['m']['epoch_time_s']:.3f} s = "
+        f"{r['s_per_step']:.4f} s/step, {r['patches_per_s']:.2f} patches/s")
+    log("[2d] peak device memory GiB: " + ", ".join(f"{k} {v:.4f}" for k, v in peaks.items()))
+    log(f"[2d] {len(preds)} test cases predicted with {flips} flips, 2D boxes per case "
+        f"{[s[0] for s in boxes_per_case]}; {key} {metrics[key]:.4f}")
+    for stage, delta in launches.items():
+        log(f"[2d] kernel launches in {stage}: {delta}")
+    log(f"[2d] launches of #1-#4, #7 and the cluster kernel in the whole run: {totals}")
+    if not all(totals.values()):
+        raise AssertionError(f"2d: kernels never launched: {totals}")
+
+    times = lifted_kernel_checks(device, nms_calls[0], wbc_calls[0])
+    norm_err = norm_checks_2d(device, cfg, plan.batch_size)
+    phase_reference(device, tiny_cfg_2d(), case_shape=(96, 80), label="tiny float32 2D")
+
+    ds = phase_train(device, batch=ds_batch, warmup=1, steps=2, label="train deep supervision",
+                     cfg=dataclasses.replace(luna_cfg(), segmenter_deep_supervision=True))
+    ds_tiny = dataclasses.replace(tiny_cfg(), segmenter_deep_supervision=True)
+    params = spread(RetinaUNet(ds_tiny, torch.Generator().manual_seed(0))).state_dict()
+    reference_train_step(device, ds_tiny, params, label="tiny float32 deep supervision")
+    return dict(launches={**launches, "total": totals}, plan=plan, seconds=seconds, peaks=peaks,
+                s_per_step=r["s_per_step"], times=times, norm_err=norm_err, ds=ds)
+
+
 def profile_train_step(trainer, state, targets, out_dir, label="train") -> None:
     """Device time by kernel over one train step (``torch.profiler``), the
     table into ``out_dir/<label>_profile.txt``."""
@@ -3250,7 +3524,7 @@ def profile_train_step(trainer, state, targets, out_dir, label="train") -> None:
 
 PHASES = ("build", "kernels", "conv", "norm", "nms", "wbc", "reference", "forward", "serve",
           "consolidate", "nms_mask", "sweep", "deploy", "train", "train_aug", "run_train",
-          "prep", "cli", "luna", "serve_fused", "train_fused")
+          "prep", "cli", "luna", "2d", "serve_fused", "train_fused")
 # the checks of one kernel alone, which ``kernels`` includes
 KERNEL_PHASES = ("conv", "norm", "nms", "wbc")
 
@@ -3327,6 +3601,8 @@ def main() -> None:
         launches["cli"] = phase_cli(device)["launches"]
     if "luna" in phases:
         launches["luna"] = phase_luna(device)["launches"]
+    if "2d" in phases:
+        launches["2d"] = phase_2d(device)["launches"]
     if "serve_fused" in phases:
         launches["serve fused"] = phase_serve_fused(device)
     if "train_fused" in phases:
@@ -3360,7 +3636,10 @@ def main() -> None:
                                if "cli" in launches else {}),
                             **({"luna_launches": {k: v.get(name, 0)
                                                   for k, v in launches["luna"].items()}}
-                               if "luna" in launches else {})})
+                               if "luna" in launches else {}),
+                            **({"2d_launches": {k: v.get(name, 0)
+                                                for k, v in launches["2d"].items()}}
+                               if "2d" in launches else {})})
         print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ as ``jax.device_get(variables)`` gives them) onto a port model's
 ``state_dict``. The port names its submodules after the flax scopes, so the
 mapping is a leaf rename plus the layout changes:
 
-* conv kernels ``[*k, Ci, Co]`` -> ``weight [Co, Ci, *k]``;
+* conv kernels ``[*k, Ci, Co]`` -> ``weight [Co, Ci, *k]``, 2D or 3D (a
+  dense kernel ``[Ci, Co]`` is the case without ``k``);
 * transposed-conv kernels ``[*k, Ci, Co]`` -> ``weight [Ci, Co, *k]``,
   flipped along the spatial axes (flax's ``ConvTranspose`` does not flip its
   kernel, PyTorch's transposed convolution does);

@@ -4,7 +4,8 @@ Greedy NMS truncated to ``max_out`` survivors is ``max_out`` steps of
 (arg-max, suppress by IoU): identical to full greedy NMS followed by
 ``keep[:max_out]``. :func:`topk_nms` and :func:`batched_nms_topk` run the
 steps in the kernel of :mod:`nndetection_tpu_torch.ops.nms`, one launch for
-all images.
+all images, 2D boxes too: the kernel's wrapper lifts them to unit depth,
+after the label offset, which so never moves z.
 
 :func:`nms_mask` and :func:`batched_nms_mask` are the untruncated greedy NMS
 of one image, returning a keep mask: the suppression relation of the
@@ -32,7 +33,7 @@ def topk_nms(
     """Greedy NMS keeping at most ``max_out`` boxes per image.
 
     Args:
-        boxes: ``[I, N, 6]``
+        boxes: ``[I, N, 2*dim]``
         scores: ``[I, N]``
         valid: boolean validity ``[I, N]``
         iou_threshold: suppression threshold (strictly greater suppresses)
@@ -48,7 +49,7 @@ def topk_nms(
 
 def _offset_by_label(boxes: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """The coordinate-offset trick: boxes of label ``l`` move by
-    ``l * (max coordinate + 1)`` along every axis, per image (``[..., N, 6]``),
+    ``l * (max coordinate + 1)`` along every axis, per image (``[..., N, 2*dim]``),
     so that boxes of different labels never overlap."""
     boxes = boxes.float()
     masked_coords = torch.where(valid[..., None], boxes, 0.0)
@@ -82,7 +83,7 @@ def nms_mask(
     iou_threshold: float,
 ) -> torch.Tensor:
     """Untruncated greedy NMS of one image, returning a keep mask ``[N]``
-    (``boxes [N, 6]``, ``scores [N]``, ``valid [N]``). Boxes are ranked by
+    (``boxes [N, 2*dim]``, ``scores [N]``, ``valid [N]``). Boxes are ranked by
     score, ties by index; the mask stays on the device of the inputs."""
     n = boxes.shape[0]
     if n == 0:
@@ -117,7 +118,7 @@ def weighted_nms_topk(
     max_out: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """NMS of one image ranking by ``scores * weights`` (the model-level
-    "weighted NMS" of ensembling): ``boxes [N, 6]``, ``scores``, ``weights``,
+    "weighted NMS" of ensembling): ``boxes [N, 2*dim]``, ``scores``, ``weights``,
     ``valid [N]`` -> ``(keep_idx [max_out], keep_valid [max_out])``."""
     idx, keep = topk_nms(boxes[None], (scores * weights)[None], valid[None], iou_threshold, max_out)
     return idx[0], keep[0]

@@ -42,20 +42,20 @@ def batched_wbc(
     """Per-class weighted box clustering on the device of the inputs.
 
     Args:
-        boxes: ``[N, 6]``
+        boxes: ``[N, 2*dim]``
         scores, weights, n_exp_preds: ``[N]``
         labels: ``[N]`` integer classes; class ``c`` in ``0..num_classes-1``
             clusters the valid boxes of label ``c``
         valid: ``[N]`` bool
         iou_thresh: boxes with IoU > thresh w.r.t. the cluster seed join it
         score_thresh: clusters with consolidated score <= thresh are dropped
-        use_area: multiply weights by box volume
+        use_area: multiply weights by box volume (area in 2D)
         missing_weight: dampening weight for missing predictions
 
-    Returns ``(boxes [C*N, 6], scores [C*N], labels [C*N], valid [C*N])``,
+    Returns ``(boxes [C*N, 2*dim], scores [C*N], labels [C*N], valid [C*N])``,
     class-major, each class's clusters in the order they formed.
     """
-    n = boxes.shape[0]
+    n, n_coords = boxes.shape
     boxes32 = boxes.float().contiguous()
     w = weights.float()
     if use_area:
@@ -65,7 +65,7 @@ def batched_wbc(
         n_exp_preds.float().contiguous(), labels.to(torch.int32).contiguous(),
         valid.bool().contiguous(), num_classes, iou_thresh, score_thresh, missing_weight)
     out_labels = torch.arange(num_classes, dtype=torch.int32, device=boxes.device)
-    return (ob.reshape(num_classes * n, 6), os_.reshape(-1),
+    return (ob.reshape(num_classes * n, n_coords), os_.reshape(-1),
             out_labels.repeat_interleave(n), ov.reshape(-1))
 
 
@@ -83,7 +83,7 @@ def wbc(
     """Single-class weighted box clustering on the device of the inputs.
 
     Arguments as :func:`batched_wbc` without labels. Returns
-    ``(boxes [N, 6], scores [N], valid [N])``, clusters in the order they
+    ``(boxes [N, 2*dim], scores [N], valid [N])``, clusters in the order they
     formed (descending seed score), padded.
     """
     labels = torch.zeros(boxes.shape[0], dtype=torch.int32, device=boxes.device)

@@ -120,9 +120,9 @@ ENSEMBLE_FNS = {
 }
 
 
-def _empty_result() -> Dict[str, np.ndarray]:
+def _empty_result(dim: int) -> Dict[str, np.ndarray]:
     return {
-        "pred_boxes": np.zeros((0, 6)),
+        "pred_boxes": np.zeros((0, 2 * dim)),
         "pred_scores": np.zeros((0,)),
         "pred_labels": np.zeros((0,), np.int64),
     }
@@ -225,7 +225,7 @@ class BoxEnsemblerSelective:
         centers = box_center_np(boxes) if len(boxes) else np.zeros((0, 3))
         w = self._get_box_in_tile_weight(centers, tile_size)
         w = w * self.model_weights[self.model_current]
-        dim = boxes.shape[-1] // 2 if len(boxes) else 3
+        dim = len(self.case_shape)
         if len(boxes):
             offset = np.asarray(tile_origin, dtype=np.float32)
             boxes = boxes + box_axis_vector_np(offset, dim)[None]
@@ -245,7 +245,7 @@ class BoxEnsemblerSelective:
         if cat is None:
             res = self.model_results[name]
             cat = (
-                _concat_or_empty(res["boxes"], (0, 6)),
+                _concat_or_empty(res["boxes"], (0, 2 * len(self.case_shape))),
                 _concat_or_empty(res["scores"], (0,)),
                 _concat_or_empty(res["labels"], (0,)),
                 _concat_or_empty(res["weights"], (0,)),
@@ -312,14 +312,14 @@ class BoxEnsemblerSelective:
         p = self.parameters
         per_model = [self.process_model(name) for name in self.model_results]
         if not per_model:
-            return _empty_result()
+            return _empty_result(len(self.case_shape))
         boxes, probs, labels, weights = (
             np.concatenate([m[i] for m in per_model]) for i in range(4))
 
         idx = np.argsort(-probs, kind="stable")[: p["ensemble_topk"]]
         boxes, probs, labels, weights = boxes[idx], probs[idx], labels[idx], weights[idx]
         if len(boxes) == 0:
-            return _empty_result()
+            return _empty_result(len(self.case_shape))
         n_exp = np.full(len(boxes), len(per_model), dtype=np.float64)
         return self._finish(boxes, probs, labels, weights, n_exp,
                             ENSEMBLE_FNS[p["ensemble_nms_fn"]])
@@ -424,7 +424,7 @@ class BoxEnsemblerWBC(BoxEnsemblerSelective):
         num_streams = max(len(self.model_results), 1)
         streams = [self._concat(name) for name, res in self.model_results.items() if res["boxes"]]
         if not streams:
-            return _empty_result()
+            return _empty_result(len(self.case_shape))
         boxes, probs, labels, weights = (np.concatenate([s[i] for s in streams]) for i in range(4))
 
         idx = np.argsort(-probs, kind="stable")[: p["ensemble_topk"]]
@@ -433,7 +433,7 @@ class BoxEnsemblerWBC(BoxEnsemblerSelective):
         keep = np.all(box_size_np(boxes) >= p["remove_small_boxes"], axis=-1)
         boxes, probs, labels, weights = boxes[keep], probs[keep], labels[keep], weights[keep]
         if len(boxes) == 0:
-            return _empty_result()
+            return _empty_result(len(self.case_shape))
         n_exp = self.overlap_map.mean_overlap_in_boxes(boxes) * num_streams
         return self._finish(boxes, probs, labels, weights, n_exp, batched_wbc_ensemble)
 

@@ -1,12 +1,14 @@
 """Conv/norm/act building blocks (counterpart of
-:mod:`nndetection_tpu.models.conv`), 3D.
+:mod:`nndetection_tpu.models.conv`), 2D and 3D.
 
 Activations are ``[B, C, D, H, W]`` tensors in ``torch.channels_last_3d``
-memory, so that the channel axis is innermost as in the JAX package's NDHWC
-layout and the instance-norm kernels read ``[B, S, C]`` maps without a copy.
-Convolutions are ``F.conv3d``/``F.conv_transpose3d`` (the JAX package leaves
-every default conv to XLA); the instance norm always runs through the kernels
-of :mod:`nndetection_tpu_torch.ops.instance_norm`, forward and backward, by
+memory (``[B, C, H, W]`` in ``torch.channels_last`` for 2D models), so that
+the channel axis is innermost as in the JAX package's NDHWC / NHWC layout and
+the instance-norm kernels read ``[B, S, C]`` maps without a copy.
+Convolutions are ``F.conv3d``/``F.conv_transpose3d`` or their 2D versions,
+by the weight's rank (the JAX package leaves every default conv to XLA);
+the instance norm always runs through the kernels of
+:mod:`nndetection_tpu_torch.ops.instance_norm`, forward and backward, by
 way of its ``torch.autograd.Function``. Under ``NNDET_CONV_FUSED=1`` a
 ``ConvNormAct`` whose conv and norm the JAX package fuses runs both through
 :mod:`nndetection_tpu_torch.ops.conv_in_stats` instead: the fused conv
@@ -33,7 +35,11 @@ from nndetection_tpu_torch.ops.instance_norm import instance_norm
 
 Kernel = Union[int, Sequence[int]]
 
-CHANNELS_LAST = torch.channels_last_3d
+
+def channels_last(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the channel-innermost memory format of its rank."""
+    return x.contiguous(
+        memory_format=torch.channels_last_3d if x.dim() == 5 else torch.channels_last)
 
 
 def _to_tuple(k: Kernel, dim: int = 3) -> Tuple[int, ...]:
@@ -75,10 +81,11 @@ class Conv(nn.Module):
         use_bias: bool = True,
         init: str = "he_normal",
         bias_value: float = 0.0,
+        dim: int = 3,
     ):
         super().__init__()
-        self.kernel_size = _to_tuple(kernel_size)
-        self.strides = _to_tuple(strides)
+        self.kernel_size = _to_tuple(kernel_size, dim)
+        self.strides = _to_tuple(strides, dim)
         self.init = init
         self.bias_value = bias_value
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, *self.kernel_size))
@@ -100,8 +107,8 @@ class Conv(nn.Module):
             x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
             padding = 0
         bias = self.bias.to(x.dtype) if self.bias is not None else None
-        y = F.conv3d(x, self.weight.to(x.dtype), bias, self.strides, padding)
-        return y.contiguous(memory_format=CHANNELS_LAST)
+        conv = F.conv3d if self.weight.dim() == 5 else F.conv2d
+        return channels_last(conv(x, self.weight.to(x.dtype), bias, self.strides, padding))
 
 
 class ConvTranspose(nn.Module):
@@ -109,10 +116,10 @@ class ConvTranspose(nn.Module):
     decoder's up-sampling): weight ``[Ci, Co, *k]``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: Kernel,
-                 strides: Kernel, use_bias: bool = True):
+                 strides: Kernel, use_bias: bool = True, dim: int = 3):
         super().__init__()
-        self.kernel_size = _to_tuple(kernel_size)
-        self.strides = _to_tuple(strides)
+        self.kernel_size = _to_tuple(kernel_size, dim)
+        self.strides = _to_tuple(strides, dim)
         if self.kernel_size != self.strides:
             raise NotImplementedError(
                 f"transposed conv with kernel {self.kernel_size} != stride {self.strides}")
@@ -128,8 +135,8 @@ class ConvTranspose(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = self.bias.to(x.dtype) if self.bias is not None else None
-        y = F.conv_transpose3d(x, self.weight.to(x.dtype), bias, self.strides)
-        return y.contiguous(memory_format=CHANNELS_LAST)
+        conv = F.conv_transpose3d if self.weight.dim() == 5 else F.conv_transpose2d
+        return channels_last(conv(x, self.weight.to(x.dtype), bias, self.strides))
 
 
 def in_plane_stride(ndim: int) -> Optional[int]:
@@ -165,13 +172,13 @@ class InstanceNorm(nn.Module):
         self.bias.data.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # [B, C, D, H, W] in channels_last_3d memory is a contiguous
-        # [B, D, H, W, C] map once the channel axis is moved last
+        # [B, C, *spatial] in channel-innermost memory is a contiguous
+        # [B, *spatial, C] map once the channel axis is moved last
         y = instance_norm(
-            x.permute(0, 2, 3, 4, 1), self.weight, self.bias, self.eps,
+            x.movedim(1, -1), self.weight, self.bias, self.eps,
             plane_stride=in_plane_stride(x.dim()),
         )
-        return y.permute(0, 4, 1, 2, 3)
+        return y.movedim(-1, 1)
 
 
 class GroupNorm(nn.Module):
@@ -188,8 +195,8 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         gn = self.GroupNorm_0
-        y = F.group_norm(x, gn.num_groups, gn.weight.to(x.dtype), gn.bias.to(x.dtype), gn.eps)
-        return y.contiguous(memory_format=CHANNELS_LAST)
+        return channels_last(
+            F.group_norm(x, gn.num_groups, gn.weight.to(x.dtype), gn.bias.to(x.dtype), gn.eps))
 
 
 class ConvNormAct(nn.Module):
@@ -212,14 +219,15 @@ class ConvNormAct(nn.Module):
         act: Optional[str] = "relu",
         norm_channels_per_group: int = 16,
         transposed: bool = False,
+        dim: int = 3,
     ):
         super().__init__()
         use_bias = norm is None
         if transposed:
             self.ConvTranspose_0 = ConvTranspose(
-                in_channels, out_channels, kernel_size, strides, use_bias)
+                in_channels, out_channels, kernel_size, strides, use_bias, dim=dim)
         else:
-            self.Conv_0 = Conv(in_channels, out_channels, kernel_size, strides, use_bias)
+            self.Conv_0 = Conv(in_channels, out_channels, kernel_size, strides, use_bias, dim=dim)
         if norm == "instance":
             self.InstanceNorm_0 = InstanceNorm(out_channels)
         elif norm == "group":
@@ -231,6 +239,7 @@ class ConvNormAct(nn.Module):
         self.transposed, self.norm, self.act = transposed, norm, act
 
     def _fused(self, x: torch.Tensor) -> bool:
+        # supported() takes 3D convs only, as in the JAX package
         return (conv_fused() and self.norm == "instance" and not self.transposed
                 and conv_in_stats.supported(
                     (x.shape[0], *x.shape[2:], x.shape[1]), self.Conv_0.kernel_size,

@@ -43,6 +43,7 @@ class Encoder(nn.Module):
         max_channels: int = 320,
         num_convs_per_stage: int = 2,
         norm: str = "instance",
+        dim: int = 3,
     ):
         super().__init__()
         self.num_stages = len(conv_kernels)
@@ -56,6 +57,7 @@ class Encoder(nn.Module):
                 stride=None if stage == 0 else strides[stage - 1],
                 num_convs=num_convs_per_stage,
                 norm=norm,
+                dim=dim,
             ))
             prev = self.channels[stage]
 

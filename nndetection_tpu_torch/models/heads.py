@@ -1,17 +1,17 @@
 """Detection and segmentation heads (counterpart of
-:mod:`nndetection_tpu.models.heads`; ``DeepSupervisionSegmenter`` comes
-later).
+:mod:`nndetection_tpu.models.heads`), 2D and 3D.
 
 Classifier and regressor towers are shared across pyramid levels. Outputs are
 flattened position-major with the per-location anchors (then classes)
-innermost, as the JAX package reshapes its NDHWC maps: a ``[N, A*K, D, H, W]``
-map is moved to channel-last before ``reshape(N, -1, K)``, matching the anchor
-grid of :mod:`nndetection_tpu_torch.core.boxes.anchors`.
+innermost, as the JAX package reshapes its channel-last maps: a
+``[N, A*K, *spatial]`` map is moved to channel-last before
+``reshape(N, -1, K)``, matching the anchor grid of
+:mod:`nndetection_tpu_torch.core.boxes.anchors`.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -21,7 +21,7 @@ from nndetection_tpu_torch.models.conv import Conv, ConvNormAct
 
 def _flatten(y: torch.Tensor, k: int) -> torch.Tensor:
     """``[N, A*k, *spatial]`` -> ``[N, prod(spatial)*A, k]``, position-major."""
-    return y.permute(0, 2, 3, 4, 1).reshape(y.shape[0], -1, k)
+    return y.movedim(1, -1).reshape(y.shape[0], -1, k)
 
 
 class ConvTower(nn.Module):
@@ -29,13 +29,13 @@ class ConvTower(nn.Module):
     (``conv{i}``)."""
 
     def __init__(self, in_channels: int, internal_channels: int, num_convs: int = 1,
-                 norm_channels_per_group: int = 16):
+                 norm_channels_per_group: int = 16, dim: int = 3):
         super().__init__()
         self.depth = 1 + num_convs
         for i in range(self.depth):
             self.add_module(f"conv{i}", ConvNormAct(
                 in_channels if i == 0 else internal_channels, internal_channels, 3,
-                norm="group", norm_channels_per_group=norm_channels_per_group))
+                norm="group", norm_channels_per_group=norm_channels_per_group, dim=dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.depth):
@@ -49,13 +49,13 @@ class Classifier(nn.Module):
 
     def __init__(self, in_channels: int, num_classes: int, anchors_per_pos: int,
                  internal_channels: int = 128, num_convs: int = 1,
-                 prior_prob: Optional[float] = 0.01):
+                 prior_prob: Optional[float] = 0.01, dim: int = 3):
         super().__init__()
         self.num_classes = num_classes
-        self.tower = ConvTower(in_channels, internal_channels, num_convs)
+        self.tower = ConvTower(in_channels, internal_channels, num_convs, dim=dim)
         bias = 0.0 if prior_prob is None else -math.log((1 - prior_prob) / prior_prob)
         self.out = Conv(internal_channels, anchors_per_pos * num_classes, 3,
-                        init="normal_0.01", bias_value=bias)
+                        init="normal_0.01", bias_value=bias, dim=dim)
 
     def forward(self, fmaps: List[torch.Tensor]) -> torch.Tensor:
         return torch.cat(
@@ -63,15 +63,17 @@ class Classifier(nn.Module):
 
 
 class Regressor(nn.Module):
-    """Deltas ``[N, A_total, 6]`` over all levels, each level scaled by its
-    learnable ``scales[level]``."""
+    """Deltas ``[N, A_total, 2*dim]`` over all levels, each level scaled by
+    its learnable ``scales[level]``."""
 
     def __init__(self, in_channels: int, anchors_per_pos: int, num_levels: int,
                  internal_channels: int = 128, num_convs: int = 1,
-                 learn_scale: bool = True):
+                 learn_scale: bool = True, dim: int = 3):
         super().__init__()
-        self.tower = ConvTower(in_channels, internal_channels, num_convs)
-        self.out = Conv(internal_channels, anchors_per_pos * 6, 3, init="normal_0.01")
+        self.n_coords = 2 * dim
+        self.tower = ConvTower(in_channels, internal_channels, num_convs, dim=dim)
+        self.out = Conv(internal_channels, anchors_per_pos * self.n_coords, 3,
+                        init="normal_0.01", dim=dim)
         self.scales = nn.Parameter(torch.ones(num_levels)) if learn_scale else None
 
     def forward(self, fmaps: List[torch.Tensor]) -> torch.Tensor:
@@ -80,17 +82,37 @@ class Regressor(nn.Module):
             y = self.out(self.tower(fm))
             if self.scales is not None:
                 y = y * self.scales[level].to(y.dtype)
-            deltas.append(_flatten(y, 6))
+            deltas.append(_flatten(y, self.n_coords))
         return torch.cat(deltas, dim=1)
 
 
 class Segmenter(nn.Module):
     """1x1 conv on the highest-resolution decoder map: channel-last logits
-    ``[N, D, H, W, seg_classes + 1]`` (background first)."""
+    ``[N, *spatial, seg_classes + 1]`` (background first)."""
 
-    def __init__(self, in_channels: int, seg_classes: int = 1):
+    def __init__(self, in_channels: int, seg_classes: int = 1, dim: int = 3):
         super().__init__()
-        self.out = Conv(in_channels, seg_classes + 1, 1, init="lecun_normal")
+        self.out = Conv(in_channels, seg_classes + 1, 1, init="lecun_normal", dim=dim)
 
     def forward(self, fmaps: List[torch.Tensor]) -> torch.Tensor:
-        return self.out(fmaps[0]).permute(0, 2, 3, 4, 1)
+        return self.out(fmaps[0]).movedim(1, -1)
+
+
+class DeepSupervisionSegmenter(nn.Module):
+    """1x1 convs ``out_P{level}`` on the decoder maps of the first
+    ``min(num_levels, len(in_channels))`` levels: one channel-last logits
+    map per supervised level, the highest resolution first. The loss max-pools
+    the target to each level's size
+    (:func:`nndetection_tpu_torch.losses.deep_supervision_seg_loss`)."""
+
+    def __init__(self, in_channels: Sequence[int], seg_classes: int = 1, num_levels: int = 3,
+                 dim: int = 3):
+        super().__init__()
+        self.num_levels = min(num_levels, len(in_channels))
+        for level in range(self.num_levels):
+            self.add_module(f"out_P{level}", Conv(
+                in_channels[level], seg_classes + 1, 1, init="lecun_normal", dim=dim))
+
+    def forward(self, fmaps: List[torch.Tensor]) -> List[torch.Tensor]:
+        return [getattr(self, f"out_P{level}")(fmaps[level]).movedim(1, -1)
+                for level in range(self.num_levels)]

@@ -28,15 +28,20 @@ from nndetection_tpu_torch.core.boxes.nms import batched_nms_topk
 from nndetection_tpu_torch.core.boxes.ops import clip_boxes_to_image, small_boxes_mask
 from nndetection_tpu_torch.core.boxes.sampler import HardNegativeSamplerBatched
 from nndetection_tpu_torch.models.conv import (
-    CHANNELS_LAST,
     Conv,
     ConvTranspose,
     GroupNorm,
     InstanceNorm,
+    channels_last,
 )
 from nndetection_tpu_torch.models.decoder import UFPN
 from nndetection_tpu_torch.models.encoder import Encoder, encoder_strides
-from nndetection_tpu_torch.models.heads import Classifier, Regressor, Segmenter
+from nndetection_tpu_torch.models.heads import (
+    Classifier,
+    DeepSupervisionSegmenter,
+    Regressor,
+    Segmenter,
+)
 
 
 def _tuplify(v: Any) -> Any:
@@ -161,9 +166,12 @@ class RetinaUNetConfig:
 
 
 class RetinaUNet(nn.Module):
-    """Forward network: channel-last images ``[B, *patch, C_in]`` -> detection
-    and segmentation predictions. Submodules are named after the flax scopes
-    (``encoder``, ``decoder``, ``classifier``, ``regressor``, ``segmenter``).
+    """Forward network: channel-last images ``[B, *patch, C_in]`` (2D or 3D
+    by ``cfg.dim``) -> detection and segmentation predictions. Submodules are
+    named after the flax scopes (``encoder``, ``decoder``, ``classifier``,
+    ``regressor``, ``segmenter``). With ``cfg.segmenter_deep_supervision``
+    the segmenter has a head per supervised level: ``seg_logits`` is the
+    highest resolution's, ``seg_logits_aux{i}`` level ``i``'s.
 
     Parameters are float32, initialized as flax initializes the JAX model
     (from ``generator`` when given); activations run in
@@ -175,33 +183,34 @@ class RetinaUNet(nn.Module):
 
     def __init__(self, cfg: RetinaUNetConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.dim != 3:
-            raise NotImplementedError("the port runs 3D models; 2D comes later")
-        if cfg.segmenter_deep_supervision:
-            raise NotImplementedError("deep-supervision segmenter comes later")
         self.cfg = cfg
+        dim = cfg.dim
         self.encoder = Encoder(
             cfg.in_channels, cfg.conv_kernels, cfg.strides,
-            start_channels=cfg.start_channels, max_channels=cfg.max_channels,
+            start_channels=cfg.start_channels, max_channels=cfg.max_channels, dim=dim,
         )
-        all_strides = encoder_strides(cfg.num_levels, cfg.strides, cfg.dim)
+        all_strides = encoder_strides(cfg.num_levels, cfg.strides, dim)
         self.decoder = UFPN(
             self.encoder.channels, [tuple(s) for s in all_strides],
-            cfg.decoder_levels, cfg.fpn_channels,
+            cfg.decoder_levels, cfg.fpn_channels, dim=dim,
         )
         head_in = self.decoder.out_channels[cfg.decoder_levels[0]]
         self.classifier = Classifier(
             head_in, cfg.classifier_out_classes, cfg.anchors_per_loc(),
             internal_channels=cfg.head_channels, num_convs=cfg.head_num_convs,
-            prior_prob=cfg.prior_prob,
+            prior_prob=cfg.prior_prob, dim=dim,
         )
         self.regressor = Regressor(
             head_in, cfg.anchors_per_loc(), len(cfg.decoder_levels),
             internal_channels=cfg.head_channels, num_convs=cfg.head_num_convs,
-            learn_scale=cfg.learn_scale,
+            learn_scale=cfg.learn_scale, dim=dim,
         )
-        self.segmenter = Segmenter(
-            self.decoder.out_channels[0], 1 if cfg.segmenter_fg_bg else cfg.seg_classes)
+        seg_classes = 1 if cfg.segmenter_fg_bg else cfg.seg_classes
+        if cfg.segmenter_deep_supervision:
+            self.segmenter = DeepSupervisionSegmenter(
+                self.decoder.out_channels, seg_classes, cfg.seg_supervision_levels, dim=dim)
+        else:
+            self.segmenter = Segmenter(self.decoder.out_channels[0], seg_classes, dim=dim)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -217,16 +226,22 @@ class RetinaUNet(nn.Module):
         def run(module, arg):
             return checkpoint(module, arg, use_reentrant=False) if remat else module(arg)
 
-        x = images.to(self.cfg.compute_dtype).permute(0, 4, 1, 2, 3)
-        fmaps = run(self.encoder, x.contiguous(memory_format=CHANNELS_LAST))
+        x = images.to(self.cfg.compute_dtype).movedim(-1, 1)
+        fmaps = run(self.encoder, channels_last(x))
         decoded = run(self.decoder, fmaps)
         head_maps = [decoded[l] for l in self.cfg.decoder_levels]
         # head outputs stay in the compute dtype; consumers upcast
-        return {
+        out = {
             "box_logits": run(self.classifier, head_maps),
             "box_deltas": run(self.regressor, head_maps),
-            "seg_logits": self.segmenter(decoded),
         }
+        seg = self.segmenter(decoded)
+        if self.cfg.segmenter_deep_supervision:
+            out["seg_logits"] = seg[0]
+            out.update({f"seg_logits_aux{i}": s for i, s in enumerate(seg[1:], start=1)})
+        else:
+            out["seg_logits"] = seg
+        return out
 
 
 def assign_targets(
@@ -261,9 +276,15 @@ def train_step_loss(
     sampling per image, classification and box regression) and the
     segmentation head (CE + dice), as the JAX package's ``train_step_loss``.
 
+    With ``cfg.segmenter_deep_supervision`` the segmentation loss is
+    :func:`~nndetection_tpu_torch.losses.deep_supervision_seg_loss` over
+    ``seg_logits`` and the ``seg_logits_aux{i}`` present, each level's target
+    max-pooled to its size; it is reported as ``seg_ce``, and ``seg_dice``
+    is 0.
+
     Args:
         predictions: ``box_logits [B, A, C]``, ``box_deltas [B, A, 2*dim]``,
-            ``seg_logits [B, *spatial, C+1]``
+            ``seg_logits [B, *spatial, C+1]`` (and ``seg_logits_aux{i}``)
         anchors: ``[A, 2*dim]`` on the predictions' device
         targets: ``gt_boxes [B, G, 2*dim]``, ``gt_classes [B, G]``,
             ``gt_mask [B, G]``, ``seg [B, *spatial]`` int
@@ -272,8 +293,6 @@ def train_step_loss(
     Returns scalar tensors ``cls``, ``reg``, ``seg_ce``, ``seg_dice``,
     ``num_pos`` and ``num_neg``.
     """
-    if cfg.segmenter_deep_supervision:
-        raise NotImplementedError("deep-supervision segmenter comes later")
     box_logits = predictions["box_logits"]
     box_deltas = predictions["box_deltas"]
     b, a, c = box_logits.shape
@@ -335,16 +354,28 @@ def train_step_loss(
     if cfg.segmenter_fg_bg:
         seg_target = (seg_target > 0).long()
     seg_logits = predictions["seg_logits"]
-    if cfg.seg_loss_type == "dice_topk":
-        ce = L.topk_ce_loss(seg_logits, seg_target, cfg.seg_topk_fraction)
+    if cfg.segmenter_deep_supervision:
+        logits_list = [seg_logits] + [
+            predictions[f"seg_logits_aux{i}"] for i in range(1, cfg.seg_supervision_levels)
+            if f"seg_logits_aux{i}" in predictions]
+        strides = [tuple(t // s for t, s in zip(seg_target.shape[1:], lg.shape[1:-1]))
+                   for lg in logits_list]
+        seg_ce = L.deep_supervision_seg_loss(
+            logits_list, seg_target, strides, alpha=cfg.segmenter_alpha,
+            batch_dice=cfg.batch_dice)
+        seg_dice = seg_ce.new_zeros(())
     else:
-        ce = L.softmax_ce_loss(seg_logits, seg_target)
-    seg_dice = (1 - cfg.segmenter_alpha) * L.soft_dice_loss(
-        seg_logits, seg_target, batch_dice=cfg.batch_dice, do_bg=False)
+        if cfg.seg_loss_type == "dice_topk":
+            ce = L.topk_ce_loss(seg_logits, seg_target, cfg.seg_topk_fraction)
+        else:
+            ce = L.softmax_ce_loss(seg_logits, seg_target)
+        seg_ce = cfg.segmenter_alpha * ce
+        seg_dice = (1 - cfg.segmenter_alpha) * L.soft_dice_loss(
+            seg_logits, seg_target, batch_dice=cfg.batch_dice, do_bg=False)
     return {
         "cls": cls_loss,
         "reg": reg_loss,
-        "seg_ce": cfg.segmenter_alpha * ce,
+        "seg_ce": seg_ce,
         "seg_dice": seg_dice,
         "num_pos": pos_mask.float().sum(),
         "num_neg": neg_mask.float().sum(),

@@ -1,5 +1,7 @@
-"""Truncated greedy 3D NMS over a batch of images: the counterpart of
-``nndetection_tpu/ops/pallas_ops.py::nms_topk_pallas``.
+"""Truncated greedy NMS over a batch of images: the counterpart of
+``nndetection_tpu/ops/pallas_ops.py::nms_topk_pallas``. The kernel takes 3D
+boxes; :func:`nms_topk` lifts 2D boxes to unit depth in front of it and of
+the plain version (:func:`nndetection_tpu_torch.ops.lift_2d`).
 
 :func:`nms_topk` launches the CUDA kernel of ``csrc/nms_topk.cu`` (one thread
 block per image) for CUDA tensors and runs :func:`nms_topk_plain` for CPU
@@ -21,7 +23,7 @@ from typing import Tuple
 
 import torch
 
-from nndetection_tpu_torch.ops import LAUNCHES, _build
+from nndetection_tpu_torch.ops import LAUNCHES, _build, lift_2d
 
 # dynamic shared memory one block may opt into on the H100 (227 KB)
 SMEM_MAX = 232_448
@@ -161,7 +163,8 @@ def nms_topk(
     """Greedy NMS keeping at most ``max_out`` boxes per image.
 
     Args:
-        boxes: ``[I, N, 6]`` float32
+        boxes: ``[I, N, 6]`` float32, or ``[I, N, 4]`` (2D), lifted to unit
+            depth for the kernel or its plain version
         scores: ``[I, N]`` float32 with ``-inf`` where not valid
         max_out: number of survivors to emit per image; steps beyond ``N``
             are padded with index 0, invalid
@@ -169,6 +172,7 @@ def nms_topk(
     Returns ``(idx [I, max_out] int64, valid [I, max_out] bool)`` in
     descending-score order; indices are clipped into ``[0, N-1]``.
     """
+    boxes = lift_2d(boxes)
     n_img, n = scores.shape
     steps = min(max_out, n)
     if steps == 0 or n_img == 0:

@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from nndetection_tpu_torch.ops import LAUNCHES, _build
+from nndetection_tpu_torch.ops import LAUNCHES, _build, lift_2d
 from nndetection_tpu_torch.ops.iou_matrix import iou_matrix_plain
 
 BITS = 64
@@ -135,8 +135,10 @@ def _nms_keep_scan_cuda(sup: torch.Tensor, valid_sorted: torch.Tensor) -> torch.
 
 def suppression_matrix(boxes_sorted: torch.Tensor, iou_threshold: float) -> torch.Tensor:
     """Suppression words ``[N, ceil(N/64)]`` int64 of score-sorted boxes
-    ``[N, 6]``: bit ``j`` of row ``i`` iff ``j > i`` and
-    ``IoU(i, j) > iou_threshold``."""
+    ``[N, 6]`` (or ``[N, 4]``, lifted to unit depth by
+    :func:`nndetection_tpu_torch.ops.lift_2d`): bit ``j`` of row ``i`` iff
+    ``j > i`` and ``IoU(i, j) > iou_threshold``."""
+    boxes_sorted = lift_2d(boxes_sorted)
     n = boxes_sorted.shape[0]
     if n == 0:
         return torch.zeros((0, 0), dtype=torch.int64, device=boxes_sorted.device)

@@ -6,7 +6,10 @@ block per class) for CUDA tensors and runs :func:`wbc_cluster_plain` for CPU
 tensors. Both take the boxes and compute the IoUs they need themselves, and
 cluster each class on its own; the output of class ``c`` is row ``c`` of
 ``[C, N]`` arrays, clusters in the order they formed, padded with zeros and
-``valid = False``.
+``valid = False``. Both take 3D boxes; :func:`wbc_cluster` lifts 2D boxes to
+unit depth in front of them (:func:`nndetection_tpu_torch.ops.lift_2d`) and
+slices the lifted z off the cluster boxes: the IoUs are the 2D ones, and the
+x and y sums do not see z.
 
 The kernel sorts each class's boxes once, walks them in that order to find
 the seeds (the greedy NMS keep set) and each box's cluster, and sums each
@@ -24,7 +27,7 @@ from typing import Tuple
 
 import torch
 
-from nndetection_tpu_torch.ops import LAUNCHES, _build
+from nndetection_tpu_torch.ops import LAUNCHES, _build, lift_2d
 from nndetection_tpu_torch.ops.iou_matrix import iou_matrix_plain
 
 # dynamic shared memory one block may opt into on the H100 (227 KB)
@@ -185,20 +188,23 @@ def wbc_cluster(
     """Greedy weighted box clustering of each class.
 
     Args:
-        boxes: ``[N, 6]`` float32
+        boxes: ``[N, 6]`` float32, or ``[N, 4]`` (2D)
         scores, weights, n_exp: ``[N]`` float32 (weights already multiplied
             by the box volume where the caller wants ``use_area``)
         labels: ``[N]`` int32; class ``c`` clusters the boxes of label ``c``
         valid: ``[N]`` bool
         num_classes: classes ``0 .. C-1``
 
-    Returns ``(boxes [C, N, 6], scores [C, N], valid [C, N] bool)``.
+    Returns ``(boxes [C, N, 6 or 4], scores [C, N], valid [C, N] bool)``.
     """
+    n_coords = boxes.shape[-1]
+    args = (lift_2d(boxes), scores, weights, n_exp, labels, valid, num_classes, iou_thresh,
+            score_thresh, missing_weight)
     # nothing to cluster needs no launch
     if scores.shape[0] == 0 or num_classes == 0 or scores.device.type == "cpu":
-        return wbc_cluster_plain(boxes, scores, weights, n_exp, labels, valid,
-                                 num_classes, iou_thresh, score_thresh, missing_weight)
-    if scores.device.type == "cuda":
-        return _wbc_cluster_cuda(boxes, scores, weights, n_exp, labels, valid,
-                                 num_classes, iou_thresh, score_thresh, missing_weight)
-    raise NotImplementedError(f"wbc_cluster has no kernel for {scores.device}")
+        out_boxes, out_scores, out_valid = wbc_cluster_plain(*args)
+    elif scores.device.type == "cuda":
+        out_boxes, out_scores, out_valid = _wbc_cluster_cuda(*args)
+    else:
+        raise NotImplementedError(f"wbc_cluster has no kernel for {scores.device}")
+    return out_boxes[..., :n_coords], out_scores, out_valid

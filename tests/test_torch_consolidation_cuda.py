@@ -5,8 +5,9 @@ within ``TOL["iou_ulps"]`` float32 ulps, the suppression words (#8,
 cluster kernel (``csrc/wbc_cluster.cu``) bit for bit equal to its plain
 version, two calls equal, on the edge cases of ``test_torch_wbc_walk.py``
 with its scratch in shared memory and in the workspace, and the device WBC
-as one launch of it and none of #6. Imports neither JAX nor the JAX
-package, so that it runs on a machine with the card:
+as one launch of it and none of #6; 2D boxes through the wrapper's lift to
+unit depth. Imports neither JAX nor the JAX package, so that it runs on a
+machine with the card:
 
     python -m pytest -m cuda tests/test_torch_consolidation_cuda.py
 
@@ -160,3 +161,26 @@ def test_device_wbc_is_one_launch_and_no_iou_matrix(cuda_device):
     assert LAUNCHES["iou_matrix"] == before.get("iou_matrix", 0)
     # outputs and input copies, no N x N float32 matrix (4 MB here)
     assert torch.cuda.max_memory_allocated(cuda_device) - base < 4 * 1000 * 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["shared", "workspace"])
+def test_wbc_cluster_2d_boxes(cuda_device, monkeypatch, route):
+    """2D boxes ``[N, 4]``: the wrapper lifts them to unit depth in front of
+    the kernel and slices z off its cluster boxes; the card gives the CPU
+    wrapper's bits (the plain version on the same lifted boxes), one launch
+    per call."""
+    force_route(monkeypatch, route)
+    arrays = list(make_case(23, 2000, 2, ties=64, invalid=0.05, zero_volume=0.02))
+    arrays[0] = np.ascontiguousarray(arrays[0][:, :4])
+    cpu = [torch.from_numpy(a) for a in arrays]
+    dev = [t.to(cuda_device) for t in cpu]
+    rest = (2, 0.5, 0.0, 0.7)
+    n0 = LAUNCHES["wbc_cluster"]
+    got, again = wbc_cluster(*dev, *rest), wbc_cluster(*dev, *rest)
+    want = wbc_cluster(*cpu, *rest)
+    torch.cuda.synchronize()
+    assert LAUNCHES["wbc_cluster"] == n0 + 2
+    assert got[0].shape == (2, 2000, 4) and want[2].any()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a) and torch.equal(g.cpu(), w)

@@ -1,6 +1,7 @@
 """The PyTorch port imports without JAX, flax, scikit-learn, ml_dtypes, PyYAML or
-the JAX package, and no file of it imports them; its host library is built from
-its own source."""
+the JAX package, and no file of it imports them, and its model classes (2D,
+deep supervision, the blocks no plan builds) build and run without them; its
+host library is built from its own source."""
 import re
 import subprocess
 import sys
@@ -147,6 +148,36 @@ def test_imports_with_jax_and_flax_blocked():
         "assert not any(k in ('jax', 'sklearn', 'ml_dtypes', 'yaml', 'nndetection_tpu') "
         "or k.startswith(('jax.', 'flax', 'sklearn.', 'nndetection_tpu.')) "
         "for k, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=PKG.parent, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_model_classes_run_with_jax_and_flax_blocked():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jax.numpy', 'flax', 'flax.linen', 'triton', 'nndetection_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "from nndetection_tpu_torch.models.retina_unet import RetinaUNet, RetinaUNetConfig\n"
+        "from nndetection_tpu_torch.models.blocks import SELayer, StackedResidualBlock\n"
+        "from nndetection_tpu_torch.models.decoder import PAUFPN\n"
+        "cfg = RetinaUNetConfig(dim=2, conv_kernels=((3, 3),) * 3, strides=((2, 2),) * 2,\n"
+        "    decoder_levels=(1, 2), patch_size=(32, 32), anchor_width=((4, 8),) * 2,\n"
+        "    anchor_height=((4, 8),) * 2, anchor_depth=None, start_channels=8,\n"
+        "    fpn_channels=16, head_channels=16, dtype='float32',\n"
+        "    segmenter_deep_supervision=True, seg_supervision_levels=2)\n"
+        "with torch.no_grad():\n"
+        "    out = RetinaUNet(cfg)(torch.zeros(1, 32, 32, 1))\n"
+        "    x = torch.zeros(1, 8, 8, 8, 8)\n"
+        "    y = SELayer(16, 4)(StackedResidualBlock(8, 16, stride=2)(x))\n"
+        "    p = PAUFPN([8, 16], [(1, 1, 1), (2, 2, 2)], [(3, 3, 3)] * 2, (1,), 16)(\n"
+        "        [x, torch.zeros(1, 16, 4, 4, 4)])\n"
+        "assert out['box_deltas'].shape[-1] == 4 and out['seg_logits_aux1'].shape[1] == 16\n"
+        "assert y.shape == (1, 16, 4, 4, 4) and [t.shape[1] for t in p] == [8, 16]\n"
         "print('ok')\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

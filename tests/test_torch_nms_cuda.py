@@ -3,7 +3,8 @@ its plain version ``nms_topk_plain``: the shapes of ``chip_smoke.py`` (the
 largest with its scratch in a global workspace), scores quantised to 8
 levels, an image with no valid score, ``max_out`` above the boxes left
 alive, N not a power of two with the scratch in shared memory and in the
-workspace, and two runs equal. Indices and valid flags must be identical.
+workspace, and two runs equal; 2D boxes through the wrapper's lift to unit
+depth. Indices and valid flags must be identical.
 Imports neither JAX nor the JAX package, so that it runs on a machine with
 the card:
 
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 import chip_smoke
-from nndetection_tpu_torch.ops import LAUNCHES
+from nndetection_tpu_torch.ops import LAUNCHES, lift_2d
 from nndetection_tpu_torch.ops import nms as onms
 
 
@@ -117,3 +118,21 @@ def test_public_wrapper_matches_the_cpu(cuda_device):
     idx, valid = onms.nms_topk(boxes, scores, 0.4, 600)
     c_idx, c_valid = onms.nms_topk(boxes.cpu(), scores.cpu(), 0.4, 600)
     assert torch.equal(idx.cpu(), c_idx) and torch.equal(valid.cpu(), c_valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [None, 8])
+def test_2d_boxes_through_the_lift(cuda_device, scratch, levels):
+    """2D boxes ``[I, N, 4]``: the wrapper lifts them to unit depth in front
+    of the kernel, which then gives the plain version's indices on the
+    lifted boxes, and the CPU wrapper's on the 2D boxes."""
+    boxes, scores = _inputs(cuda_device, 4, 1000, seed=21, levels=levels)
+    flat = boxes[..., :4].contiguous()
+    for thr in (0.0, 0.5):
+        valid = _check(lift_2d(flat), scores, thr, 100)
+        assert valid.any()
+        idx, v = onms.nms_topk(flat, scores, thr, 100)
+        l_idx, l_v = onms.nms_topk(lift_2d(flat), scores, thr, 100)
+        c_idx, c_v = onms.nms_topk(flat.cpu(), scores.cpu(), thr, 100)
+        assert torch.equal(idx, l_idx) and torch.equal(v, l_v)
+        assert torch.equal(idx.cpu(), c_idx) and torch.equal(v.cpu(), c_v)

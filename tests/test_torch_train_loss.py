@@ -481,9 +481,25 @@ def test_train_step_loss_on_the_tiny_model(monkeypatch, head):
                                    err_msg=k)
 
 
-def test_deep_supervision_raises():
-    with pytest.raises(NotImplementedError):
-        train_step_loss(torch_cfg(segmenter_deep_supervision=True), {}, None, (), {}, None)
+def test_deep_supervision_raises(monkeypatch):
+    """A deep-supervision config raises nothing when only ``seg_logits`` is
+    given: its segmentation loss is ``deep_supervision_seg_loss`` over that
+    one level, as in the JAX package (the model's own levels:
+    ``tests/test_torch_deep_supervision.py``)."""
+    targets = jax_targets(0)
+    a = len(jax_cfg().anchors()[0])
+    rng = np.random.RandomState(3)
+    preds = {
+        "box_logits": (rng.standard_normal((2, a, 1)) * 3).astype(np.float32),
+        "box_deltas": (rng.standard_normal((2, a, 6)) * 0.2).astype(np.float32),
+        "seg_logits": rng.standard_normal((2, 32, 32, 32, 2)).astype(np.float32),
+    }
+    got, want = _port_losses(monkeypatch, {"segmenter_deep_supervision": True}, preds, targets,
+                             jax.random.PRNGKey(6))
+    assert float(got["seg_dice"]) == 0.0 and float(want["seg_ce"]) > 0
+    for k in LOSS_KEYS:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=LOSS_RTOL, atol=LOSS_ATOL,
+                                   err_msg=k)
 
 
 def test_jax_config_fields_are_carried():
