@@ -177,8 +177,29 @@ Phases, each printing its findings:
 18. serve fused and train fused: phases 6 (the 140x320x320 case) and 7 under
    ``NNDET_CONV_FUSED=1``, restored after; #5 must launch 7 times per model
    forward (both convs of stage 0, the second of stages 1-5), so 14 times
-   per train step with remat, beside the other kernels.
+   per train step with remat, beside the other kernels;
+19. multi: the port's multi-process training, each rank a subprocess
+   (``python3 chip_smoke.py --multi-worker=SPEC``): (a) ``run_train`` on the
+   run_train phase's task as a one-rank job under ``NNDET_COORDINATOR``,
+   ``NNDET_NUM_PROCESSES=1``, ``NNDET_PROCESS_ID=0`` (6 fed steps, 2
+   validation batches): NCCL, the model in ``DistributedDataParallel``,
+   the files, finite losses, #1-#4 and #7 launched, s/step beside the
+   one-process ``run_train``'s; (b) two ranks sharing ``cuda:0`` under gloo,
+   one data-parallel step of the tiny float32 model per head on a global
+   batch of 4, TF32 off, each rank's card step against the same 2-rank step
+   on the CPU (same group, the sampler's draws replayed) at the reference
+   phase's tolerances, the ranks' parameters equal bit for bit, #1-#4
+   launched on each; (c) the spatial step (a model axis of 2) is recorded
+   as not run before anything runs: its halo exchange sends slabs point to
+   point, which gloo does not do with CUDA tensors, and NCCL puts no two
+   ranks on one card; what of it needs only all-reduces runs: the global
+   instance norm at LUNA stage 0, its depth split over two gloo ranks on
+   ``cuda:0``, forward and backward in bfloat16 and float32, each rank
+   against the same 2-rank run on the CPU and its output against the plain
+   norm of the whole map, #1-#4 launched on each.
 
+Every JSON line but the last carries the host's load when it was printed
+(``host_load``: the 1-minute load average and the other busy processes).
 Then one JSON line with each kernel's route, source, launches in the phase
 that drives it (serve for NMS, train fused for #5, train for the instance
 norm, consolidate for the cluster kernel, NMS mask for #8 and the
@@ -186,7 +207,9 @@ keep-scan; #6, which no path launches, in the kernels phase; each
 kernel's launches in run_train (a) as ``run_train_launches``, and in the
 prep phase's ``run_prep`` and ``run_train`` as ``prep_launches``, in the
 cli phase's commands as ``cli_launches``, in the luna phase's stages
-as ``luna_launches``, and in the 2d phase's stages as ``2d_launches``), max error,
+as ``luna_launches``, in the 2d phase's stages as ``2d_launches``, and in
+the multi phase as ``multi_launches``: (a), and (b) and the spatial norm
+per rank), max error,
 times and bound, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
 non-zero and no result line is printed.
@@ -198,7 +221,7 @@ runs only the phases named (of ``build``, ``kernels``, ``conv``, ``norm``,
 ``nms`` and ``wbc`` (#5's, #1's, #7's and the cluster kernel's checks
 alone), ``reference``, ``forward``, ``serve``, ``consolidate``,
 ``nms_mask``, ``sweep``, ``deploy``, ``train``, ``train_aug``,
-``run_train``, ``prep``, ``cli``, ``luna``, ``2d``, ``serve_fused``,
+``run_train``, ``multi``, ``prep``, ``cli``, ``luna``, ``2d``, ``serve_fused``,
 ``train_fused``); the
 device phase always runs, the ``kernels`` JSON line only when every phase
 it reads ran. With no argument every phase but ``conv``, ``norm``, ``nms``
@@ -481,6 +504,15 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def json_line(obj: dict) -> None:
+    """``obj`` as one JSON line, with the host's load at this moment
+    (``utils/bench_env.py::host_load``): wall times move with what else
+    runs on the host."""
+    from nndetection_tpu_torch.utils.bench_env import host_load
+
+    print(json.dumps({**obj, "host_load": host_load()}), flush=True)
+
+
 def check_close(name, got, want, rtol, atol) -> float:
     got, want = got.float(), want.float()
     err = (got - want).abs()
@@ -530,6 +562,16 @@ def phase_build() -> None:
     for line in _build.BUILD_LOG.read_text().splitlines():
         if "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
+
+
+def in_apply_library(x4, mean, var, gamma, beta, eps=1e-5, out=None):
+    """#2's function as PyTorch calls: the per-(b, c) scale and shift
+    formed by small ops, then one ``torch.addcmul(shift, x, scale)`` in
+    float32 written in x's type."""
+    scale = torch.rsqrt(var + eps) * gamma
+    shift = beta - mean * scale
+    out = torch.empty_like(x4) if out is None else out
+    return torch.addcmul(shift[:, None, None], x4, scale[:, None, None], out=out)
 
 
 def _grad_kernels(x4, dy4, gamma, start, step, reps):
@@ -607,9 +649,19 @@ def phase_kernels(device, stages=LUNA_STAGES, nms_shapes=NMS_SHAPES, train_stage
                 log(f"[kernels] instance norm apply {shape} {str(dtype)[6:]} planes {start}::{step}: "
                     f"err {e_apply:.2e} {times['in_apply']:.4f} ms (plain {times['in_apply_plain']:.4f})")
                 if si == 0 and dtype == torch.bfloat16 and stride == 8:
+                    out = torch.empty_like(x4)
+                    e_lib = check_close(f"in_apply library {shape}",
+                                        in_apply_library(x4, pmean, pvar, gamma, beta, out=out),
+                                        py, **tol)
+                    library_ms = median_ms(
+                        lambda: in_apply_library(x4, pmean, pvar, gamma, beta, out=out), reps)
+                    log(f"[kernels] instance norm apply {shape} bf16: torch.addcmul with the "
+                        f"per-(b, c) scale and shift formed {library_ms:.4f} ms (err {e_lib:.2e}) "
+                        f"against the kernel's {times['in_apply']:.4f} ms")
                     # x read and y written once, ~3 flops each
                     summary["in_apply"].update(
-                        ms=times["in_apply"], plain_ms=times["in_apply_plain"], library_ms=None,
+                        ms=times["in_apply"], plain_ms=times["in_apply_plain"],
+                        library_ms=library_ms,
                         shape=f"{list(shape)} bf16 planes {start}::{step}",
                         **bound(nbytes(x4, x4, pmean, pvar, gamma, beta), 3 * x4.numel(), PEAK_F32))
                 errs, _ = _grad_kernels(x4, dy4, gamma, start, step, reps)
@@ -700,7 +752,7 @@ def norm_kernel_checks(device, stages=LUNA_STAGES, batches=IN_BATCHES, reps=20) 
                         out = dict(t, plain_ms=plain_ms, library_ms=library_ms,
                                    shape=f"{[b, d, h, w, c]} bf16 planes {start}::{step}", **bnd)
             del base, x4
-    print(json.dumps({"in_stats_shapes": rows}), flush=True)
+    json_line({"in_stats_shapes": rows})
     out["max_abs_err"] = err
     return out
 
@@ -867,7 +919,7 @@ def conv_kernel_checks(device, shapes=CONV_SHAPES, train=CONV_TRAIN, tiny=TINY_F
         del x, y
     if routes != {"brick", "split_k", "im2col"}:
         raise AssertionError(f"conv3d_in_stats: routes exercised {sorted(routes)}, want all three")
-    print(json.dumps({"conv3d_in_stats_shapes": rows}), flush=True)
+    json_line({"conv3d_in_stats_shapes": rows})
     out["max_abs_err"] = err
     return out
 
@@ -1105,7 +1157,7 @@ def wbc_kernel_checks(device, shape=WBC_SHAPE, sizes=WBC_SIZES, reps=20) -> dict
             f"{plan.smem_bytes} B, workspace {row['workspace_bytes']} B; plain on the CPU "
             f"{plain_cpu_s:.2f} s" + extra)
         rows.append(row)
-    print(json.dumps({"wbc_shapes": rows}), flush=True)
+    json_line({"wbc_shapes": rows})
     out["max_abs_err"] = 0.0
     return out
 
@@ -1276,6 +1328,19 @@ def _rel_l2(got, want) -> float:
     return math.sqrt(num / den)
 
 
+def keep_grads(state, grads: dict) -> None:
+    """Copy the clipped gradients into ``grads`` as the optimizer receives
+    them (the multi-tensor SGD on the card may update them in place)."""
+    step = state.optimizer.step
+
+    def wrapped(*args, **kwargs):
+        grads.update({n: p.grad.detach().cpu().clone()
+                      for n, p in state.model.named_parameters()})
+        return step(*args, **kwargs)
+
+    state.optimizer.step = wrapped
+
+
 def reference_train_step(device, cfg, params, tol=REF_STEP_TOL, label="tiny float32") -> None:
     """One ``Trainer.train_epoch`` step of the tiny float32 model on the
     card against the CPU, with the sampler's draws made once on the CPU and
@@ -1294,18 +1359,6 @@ def reference_train_step(device, cfg, params, tol=REF_STEP_TOL, label="tiny floa
         u = draw(generator, shape, dev)
         draws.append(u.clone())
         return u
-
-    def keep_grads(state, grads):
-        # the clipped gradients, as the optimizer receives them (the
-        # multi-tensor SGD on the card may update them in place)
-        step = state.optimizer.step
-
-        def wrapped(*args, **kwargs):
-            grads.update({n: p.grad.detach().cpu().clone()
-                          for n, p in state.model.named_parameters()})
-            return step(*args, **kwargs)
-
-        state.optimizer.step = wrapped
 
     runs = []
     try:
@@ -2563,6 +2616,380 @@ def phase_run_train(device, n_cases=RUN_TRAIN_CASES, shape=TRAIN_AUG_CASE_SHAPE,
     return dict(launches=full["launches"], rotating=rot["launches"], full=full, rot=rot)
 
 
+# the multi phase: the port's multi-process training on the one card. (a)
+# run_train as a one-rank NCCL job, (b) a data-parallel step of two gloo ranks
+# sharing cuda:0, (c) the spatial step where the backend carries its
+# collectives on CUDA tensors
+MULTI_STEP_BATCH = 4
+# the spatial instance norm: LUNA stage 0 [B, D, H, W, C], D split over the
+# two ranks
+MULTI_NORM_SHAPE = LUNA_STAGES[0]
+# its card run against its CPU run, both with the same all-reduces: the
+# statistics come from other summation orders (#1's partials and Chan's
+# merge against the plain sums), within in_stats' rtol of 1e-4, and reach
+# y and dx through xhat (|xhat| < 6 here), so 5e-4 absolute in float32; in
+# bfloat16 that moves a result by at most one bfloat16 ulp (2^-7 relative).
+# The parameter gradients sum all of a rank's voxels: held at a share of
+# their largest entry, as the step's gradients are (REF_STEP_TOL)
+MULTI_NORM_TOL = {torch.float32: dict(y=(1e-4, 5e-4), dx=(1e-4, 5e-4), param=1e-4),
+                  torch.bfloat16: dict(y=(1e-2, 1e-2), dx=(1e-2, 1e-2), param=1e-4)}
+MULTI_GROUP_TIMEOUT_MIN = 5.0
+MULTI_WORKER_TIMEOUT_S = 600
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_ranks(specs, env=None, timeout=MULTI_WORKER_TIMEOUT_S) -> list:
+    """``python3 chip_smoke.py --multi-worker=SPEC`` for each spec, all at
+    once, each with ``env[i]`` added to the environment; waits for all,
+    raises with a rank's errors if it failed, and returns each one's result
+    (the JSON it wrote to ``spec["out"]``)."""
+    procs = []
+    for i, spec in enumerate(specs):
+        penv = dict(os.environ, **(env[i] if env else {}))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--multi-worker=" + json.dumps(spec)],
+            env=penv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    deadline = time.monotonic() + timeout
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            logs.append(p.communicate()[0] + f"\n(killed after {timeout} s)")
+    for p in procs:
+        p.kill()
+        p.wait()
+    for i, (p, out) in enumerate(zip(procs, logs)):
+        for line in out.splitlines():
+            if line.startswith("["):
+                log(f"[multi] rank {i}: {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"multi: rank {i} exited {p.returncode}:\n{out[-6000:]}")
+    return [json.loads(open(spec["out"]).read()) for spec in specs]
+
+
+def multi_worker(spec: dict) -> None:
+    """One rank of the multi phase (a subprocess of the phase), writing its
+    result to ``spec["out"]`` as JSON."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the multi phase's ranks run on the card only")
+    out = {"run_train": _worker_run_train, "step": _worker_step,
+           "spatial_norm": _worker_spatial_norm}[spec["kind"]](spec)
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+
+
+def _worker_run_train(spec: dict) -> dict:
+    """``run_train`` under the ``NNDET_*`` contract the parent set (or none:
+    one process): the process group's backend and world, the model's
+    wrapper, each train step's seconds (synchronised), and
+    :func:`run_train_once`'s checks (files, losses, parameters, #1-#4 and
+    #7 launched)."""
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from nndetection_tpu_torch.train import trainer as trainer_mod
+
+    wrappers = []
+    init_state = trainer_mod.Trainer.init_state
+
+    def recording(self, *args, **kwargs):
+        state = init_state(self, *args, **kwargs)
+        wrappers.append(None if state.ddp is None else type(state.ddp).__name__)
+        return state
+
+    step_s = []
+    train_step = trainer_mod.Trainer.train_step
+
+    def timed(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = train_step(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    trainer_mod.Trainer.init_state = recording
+    trainer_mod.Trainer.train_step = timed
+    r = run_train_once(torch.device("cuda"), Path(spec["task"]), Path(spec["models"]),
+                       spec["steps"], spec["val_batches"])
+    grouped = dist.is_initialized()
+    res = dict(backend=dist.get_backend() if grouped else None,
+               world=dist.get_world_size() if grouped else None, wrappers=wrappers,
+               step_s=step_s,
+               launches=r["launches"], s_per_step=r["s_per_step"], peak_gib=r["peak_gib"],
+               losses={k: r["m"][f"train_{k}"] for k in ("cls", "reg", "seg_ce", "seg_dice")})
+    if grouped:
+        dist.destroy_process_group()
+    return res
+
+
+def _worker_step(spec: dict) -> dict:
+    """One train step of the tiny float32 model per head on this rank's
+    rows (the whole batch on a model axis) of a seeded global batch, on the
+    CPU and then on the card within one gloo group, with the sampler draws
+    made on the CPU and replayed on the card, TF32 off: losses, the clipped
+    gradients and the parameters after the update held at the reference
+    phase's tolerances; #1-#4 launched by the card's step."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from nndetection_tpu_torch.core.boxes import sampler
+    from nndetection_tpu_torch.models.retina_unet import RetinaUNet
+    from nndetection_tpu_torch.ops import LAUNCHES
+    from nndetection_tpu_torch.parallel import distributed
+    from nndetection_tpu_torch.parallel.mesh import make_mesh
+    from nndetection_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world, n_model = spec["rank"], spec["world"], spec["n_model"]
+    card = torch.device(spec.get("device", "cuda"))  # "cpu" only to rehearse off the card
+    distributed.initialize(f"localhost:{spec['port']}", world, rank, device=card,
+                           backend="gloo", timeout_min=MULTI_GROUP_TIMEOUT_MIN)
+    card = distributed.rank_device(card)
+    cfg = tiny_cfg()
+    params = spread(RetinaUNet(cfg, torch.Generator().manual_seed(0))).state_dict()
+    tcfg = TrainerConfig(batch_size=MULTI_STEP_BATCH, warm_iterations=0, max_epochs=1,
+                         num_train_batches_per_epoch=10, swa_epochs=0)
+    rows = distributed.local_batch_slice(MULTI_STEP_BATCH, n_model)
+    batch = {k: v[rows] for k, v in train_targets("cpu", MULTI_STEP_BATCH, cfg.patch_size,
+                                                  seed=4).items()}
+    draw = sampler.draw_uniform
+    res = {"rows": [rows.start, rows.stop], "backend": dist.get_backend(), "heads": {}}
+    card_params = {}
+    for head in ("no_sampler", "hnm"):
+        hcfg = dataclasses.replace(cfg, head_type=head)
+        draws, runs = [], []
+
+        def record(generator, shape, dev):
+            u = draw(generator, shape, dev)
+            draws.append(u.clone())
+            return u
+
+        try:
+            for dev, fn in ((torch.device("cpu"), record),
+                            (card, lambda g, shape, d: draws.pop(0).to(d))):
+                sampler.draw_uniform = fn
+                trainer = Trainer(hcfg, tcfg, dev,
+                                  mesh=make_mesh(world // n_model, n_model, dev.type))
+                state = trainer.init_state(params=params)
+                grads = {}
+                keep_grads(state, grads)
+                LAUNCHES.clear()
+                losses = trainer.train_step(state, trainer._to_device(batch),
+                                            torch.Generator(device=dev))
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                launches = dict(LAUNCHES)
+                runs.append(({k: v.cpu() for k, v in losses.items()}, grads,
+                             {n: p.detach().cpu() for n, p in state.model.named_parameters()},
+                             launches, state.ddp is not None))
+        finally:
+            sampler.draw_uniform = draw
+        (l_cpu, g_cpu, p_cpu, _, _), (l_dev, g_dev, p_dev, launches, wrapped) = runs
+        errs = {k: check_close(f"multi {head} {k}", l_dev[k], l_cpu[k], *REF_STEP_TOL["loss"])
+                for k in ("cls", "reg", "seg_ce", "seg_dice", "num_pos", "num_neg")}
+        g_err = max(check_close(f"multi {head} grad {n}", g_dev[n], g_cpu[n], 0,
+                                REF_STEP_TOL["grad"] * float(g_cpu[n].abs().max()))
+                    for n in g_cpu)
+        p_err = max(check_close(f"multi {head} param {n}", p_dev[n], p_cpu[n],
+                                *REF_STEP_TOL["param"]) for n in p_cpu)
+        res["heads"][head] = dict(losses={k: float(v) for k, v in l_dev.items()},
+                                  loss_err=errs, grad_err=g_err, param_err=p_err,
+                                  launches=launches, ddp=wrapped)
+        card_params[head] = p_dev
+    torch.save(card_params, spec["out"] + ".params.pt")
+    dist.destroy_process_group()
+    return res
+
+
+def _worker_spatial_norm(spec: dict) -> dict:
+    """The global instance norm of a map sharded along D over the group
+    (``spatial_instance_norm``: #1 at the exact schedule, Chan's merge of
+    count, mean and M2 over the group, #2 with the global statistics;
+    backward #3, its sums all-reduced and divided by the group's size, #4)
+    at ``MULTI_NORM_SHAPE``, forward and backward in bfloat16 and float32:
+    on the CPU and then on the card within one gloo group, the card's
+    output, input gradient and parameter gradients held to the CPU's, its
+    output to the plain norm of the whole map on the card; #1-#4 launched
+    by each card run."""
+    import torch.distributed as dist
+
+    from nndetection_tpu_torch.ops import LAUNCHES
+    from nndetection_tpu_torch.ops.instance_norm import instance_norm_plain, spatial_instance_norm
+    from nndetection_tpu_torch.parallel import distributed
+
+    rank, world = spec["rank"], spec["world"]
+    distributed.initialize(f"localhost:{spec['port']}", world, rank, device="cuda",
+                           backend="gloo", timeout_min=MULTI_GROUP_TIMEOUT_MIN)
+    card = distributed.rank_device("cuda")
+    c, depth = MULTI_NORM_SHAPE[-1], MULTI_NORM_SHAPE[1]
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(MULTI_NORM_SHAPE, generator=g) * 2 + 1
+    dy = torch.randn(MULTI_NORM_SHAPE, generator=g)
+    gamma = torch.rand(c, generator=g) + 0.5
+    beta = torch.randn(c, generator=g)
+    zs = slice(rank * depth // world, (rank + 1) * depth // world)
+    res = {"backend": dist.get_backend(), "z": [zs.start, zs.stop], "dtypes": {}, "launches": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        runs = []
+        for dev in (torch.device("cpu"), card):
+            xs = x[:, zs].to(dev, dtype, copy=True).contiguous().requires_grad_()
+            gs, bs = (t.to(dev, copy=True).requires_grad_() for t in (gamma, beta))
+            LAUNCHES.clear()
+            y = spatial_instance_norm(xs, gs, bs)
+            y.backward(dy[:, zs].to(dev, dtype).contiguous())
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            runs.append(({"y": y.detach(), "dx": xs.grad, "dgamma": gs.grad, "dbeta": bs.grad},
+                         dict(LAUNCHES)))
+        (cpu, _), (dev_out, launches) = runs
+        tol, name = MULTI_NORM_TOL[dtype], str(dtype)[6:]
+        errs = {k: check_close(f"multi spatial norm {name} {k}", dev_out[k].cpu(), cpu[k], *tol[k])
+                for k in ("y", "dx")}
+        for k in ("dgamma", "dbeta"):
+            errs[k] = check_close(f"multi spatial norm {name} {k}", dev_out[k].cpu(), cpu[k], 0,
+                                  tol["param"] * float(cpu[k].abs().max()))
+        whole = instance_norm_plain(x.to(card, dtype), gamma.to(card), beta.to(card))[:, zs]
+        errs["y_whole"] = check_close(f"multi spatial norm {name} y against the whole map",
+                                      dev_out["y"], whole, *tol["y"])
+        res["dtypes"][name] = errs
+        res["launches"][name] = launches
+    dist.destroy_process_group()
+    return res
+
+
+def phase_multi(device, single=None, n_cases=RUN_TRAIN_CASES, shape=TRAIN_AUG_CASE_SHAPE,
+                steps=6, val_batches=2) -> dict:
+    """The port's multi-process training on the one card, each rank a
+    process of its own (``python3 chip_smoke.py --multi-worker=...``):
+
+    (a) ``run_train`` as a one-rank job (``NNDET_COORDINATOR``,
+    ``NNDET_NUM_PROCESSES=1``, ``NNDET_PROCESS_ID=0``) on the run_train
+    phase's task, 6 fed steps and 2 validation batches: NCCL, the model in
+    DDP, the files, finite losses, #1-#4 and #7 launched; s/step beside the
+    one-process ``run_train``'s in a fresh process as well (both pay a new
+    process's first steps) and in this one (``single``, the run_train
+    phase's (a), or run here); (b) two gloo ranks on ``cuda:0``, one data-parallel step of
+    the tiny float32 model per head, each rank against the same step on
+    the CPU in the same group, the ranks' parameters equal bit for bit, #1-#4
+    launched on each; (c) the spatial step with a model axis of 2 is
+    recorded as not run, before anything runs (gloo sends no CUDA tensor
+    point to point, NCCL puts no two ranks on one card); its global
+    instance norm, which needs only all-reduces, runs on two gloo ranks on
+    ``cuda:0`` (:func:`_worker_spatial_norm`)."""
+    import tempfile
+    from pathlib import Path
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        task_dir = tmp / "Task100_LunaPlan"
+        write_task(task_dir, n_cases, shape)
+        if single is None:
+            single = run_train_once(device, task_dir, tmp / "models_single", steps, val_batches)
+        port = free_port()
+        (fresh,) = spawn_ranks(
+            [dict(kind="run_train", task=str(task_dir), models=str(tmp / "models_fresh"),
+                  steps=steps, val_batches=val_batches, out=str(tmp / "fresh.json"))])
+        (a,) = spawn_ranks(
+            [dict(kind="run_train", task=str(task_dir), models=str(tmp / "models_nccl"),
+                  steps=steps, val_batches=val_batches, out=str(tmp / "a.json"))],
+            env=[{"NNDET_COORDINATOR": f"localhost:{port}", "NNDET_NUM_PROCESSES": "1",
+                  "NNDET_PROCESS_ID": "0"}])
+        if fresh["backend"] is not None or fresh["wrappers"] != [None]:
+            raise AssertionError(f"multi (a): the one-process run formed a group: {fresh}")
+        if a["backend"] != "nccl" or a["world"] != 1 or a["wrappers"] != ["DistributedDataParallel"]:
+            raise AssertionError(f"multi (a): backend {a['backend']}, world {a['world']}, "
+                                 f"wrappers {a['wrappers']}")
+        log(f"[multi] (a) run_train as a one-rank NCCL job: {a['s_per_step']:.4f} s/step against "
+            f"{fresh['s_per_step']:.4f} s/step without a job in a fresh process and "
+            f"{single['s_per_step']:.4f} s/step in this one ({steps} fed steps, "
+            f"{val_batches} validation batches, the first steps included); backend "
+            f"{a['backend']}, model in "
+            f"{a['wrappers'][0]}; peak {a['peak_gib']:.2f} GiB; losses "
+            + ", ".join(f"{k} {v:.4f}" for k, v in a["losses"].items())
+            + f"; kernel launches {a['launches']}")
+        for label, r in (("one-rank NCCL job", a), ("one process, fresh", fresh)):
+            log(f"[multi] (a) {label}: train steps {', '.join(f'{t:.4f}' for t in r['step_s'])} "
+                f"s; first {r['step_s'][0]:.4f} s, median of the rest "
+                f"{statistics.median(r['step_s'][1:]):.4f} s")
+        out["a"] = dict(a, single_s_per_step=single["s_per_step"],
+                        fresh_s_per_step=fresh["s_per_step"])
+
+        def step_ranks(n_model, label):
+            port = free_port()
+            specs = [dict(kind="step", rank=r, world=2, n_model=n_model, port=port,
+                          out=str(tmp / f"{label}{r}.json")) for r in range(2)]
+            results = spawn_ranks(specs)
+            params = [torch.load(sp["out"] + ".params.pt", weights_only=True) for sp in specs]
+            for head in ("no_sampler", "hnm"):
+                for n, p in params[0][head].items():
+                    if not torch.equal(p, params[1][head][n]):
+                        raise AssertionError(f"multi ({label}) {head}: the ranks' {n} differ")
+            for r, res in enumerate(results):
+                for head, h in res["heads"].items():
+                    not_run = [k for k in TRAIN_KERNELS if h["launches"].get(k, 0) == 0]
+                    if not_run or not h["ddp"] or res["backend"] != "gloo":
+                        raise AssertionError(f"multi ({label}) rank {r} {head}: kernels not "
+                                             f"launched {not_run}, ddp {h['ddp']}, backend "
+                                             f"{res['backend']}")
+                    log(f"[multi] ({label}) rank {r} of 2 on cuda:0 (gloo), rows "
+                        f"{res['rows']}, {head}: card vs CPU max abs err losses "
+                        + ", ".join(f"{k} {v:.2e}" for k, v in h["loss_err"].items())
+                        + f", gradients {h['grad_err']:.2e}, parameters {h['param_err']:.2e}; "
+                        f"total {h['losses']['total']:.6f}; launches {h['launches']}")
+            log(f"[multi] ({label}) the two ranks' parameters after the step equal bit for bit")
+            return results
+
+        out["b"] = step_ranks(1, "b")
+        log("[multi] (c) the spatial step did not run on the card: its halo exchange sends "
+            "slabs point to point, which gloo does not do with CUDA tensors, and NCCL does "
+            "not put two ranks on one card; a model axis of 2 needs two cards: unverified")
+        port = free_port()
+        out["c_norm"] = spawn_ranks(
+            [dict(kind="spatial_norm", rank=r, world=2, port=port,
+                  out=str(tmp / f"norm{r}.json")) for r in range(2)])
+        for r, res in enumerate(out["c_norm"]):
+            for name, errs in res["dtypes"].items():
+                launched = res["launches"][name]
+                not_run = [k for k in TRAIN_KERNELS if launched.get(k, 0) == 0]
+                if not_run or res["backend"] != "gloo":
+                    raise AssertionError(f"multi (c) spatial norm rank {r} {name}: kernels not "
+                                         f"launched {not_run}, backend {res['backend']}")
+                log(f"[multi] (c) spatial instance norm {MULTI_NORM_SHAPE} rank {r} of 2 on "
+                    f"cuda:0 (gloo), depth {res['z']}, {name}: card vs CPU max abs err "
+                    + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                    + f"; launches {launched}")
+    # per rank, both heads' steps; both dtypes of the spatial norm
+    launches = {"a": a["launches"],
+                "b": [{k: sum(h["launches"].get(k, 0) for h in r["heads"].values())
+                       for k in KERNELS} for r in out["b"]],
+                "c_norm": [{k: sum(d.get(k, 0) for d in r["launches"].values())
+                            for k in KERNELS} for r in out["c_norm"]]}
+    json_line({"multi": {"a_s_per_step": a["s_per_step"], "a_step_s": a["step_s"],
+                         "fresh_step_s": fresh["step_s"],
+                         "fresh_s_per_step": fresh["s_per_step"],
+                         "single_s_per_step": single["s_per_step"],
+                         "b_ranks_bit_equal": True, "c_ran": False,
+                         "c_norm_err": [r["dtypes"] for r in out["c_norm"]],
+                         "launches": launches}})
+    return dict(out, launches=launches)
+
+
 # the prep phase: a raw CT task through the port's run_prep, then trained on
 # the port's own plan
 PREP_CASES = 6
@@ -3524,7 +3951,7 @@ def profile_train_step(trainer, state, targets, out_dir, label="train") -> None:
 
 PHASES = ("build", "kernels", "conv", "norm", "nms", "wbc", "reference", "forward", "serve",
           "consolidate", "nms_mask", "sweep", "deploy", "train", "train_aug", "run_train",
-          "prep", "cli", "luna", "2d", "serve_fused", "train_fused")
+          "multi", "prep", "cli", "luna", "2d", "serve_fused", "train_fused")
 # the checks of one kernel alone, which ``kernels`` includes
 KERNEL_PHASES = ("conv", "norm", "nms", "wbc")
 
@@ -3550,13 +3977,17 @@ def parse_phases(argv) -> tuple:
 def main() -> None:
     from nndetection_tpu_torch.ops import LAUNCHES
 
+    worker = next((a.split("=", 1)[1] for a in sys.argv[1:]
+                   if a.startswith("--multi-worker=")), None)
+    if worker is not None:  # one rank of the multi phase
+        return multi_worker(json.loads(worker))
     profile_dir = next((a.split("=", 1)[1] for a in sys.argv[1:]
                         if a.startswith("--profile=")), None)
     phases = parse_phases(sys.argv[1:])
     smi = phase_device()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    launches, summary, train, fed = {}, None, None, None
+    launches, summary, train, fed, single = {}, None, None, None, None
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
@@ -3594,7 +4025,10 @@ def main() -> None:
         fed = phase_train_aug(device, train)
         launches["train aug"] = fed["launches"]
     if "run_train" in phases:
-        launches["run_train"] = phase_run_train(device)["launches"]
+        rt = phase_run_train(device)
+        launches["run_train"], single = rt["launches"], rt["full"]
+    if "multi" in phases:
+        launches["multi"] = phase_multi(device, single)["launches"]
     if "prep" in phases:
         launches["prep"] = phase_prep(device, prepared=train, fed=fed)["launches"]
     if "cli" in phases:
@@ -3639,8 +4073,14 @@ def main() -> None:
                                if "luna" in launches else {}),
                             **({"2d_launches": {k: v.get(name, 0)
                                                 for k, v in launches["2d"].items()}}
-                               if "2d" in launches else {})})
-        print(json.dumps({"kernels": kernels}))
+                               if "2d" in launches else {}),
+                            **({"multi_launches": {
+                                "a": launches["multi"]["a"].get(name, 0),
+                                "b": [r.get(name, 0) for r in launches["multi"]["b"]],
+                                "c_norm": [r.get(name, 0)
+                                           for r in launches["multi"]["c_norm"]]}}
+                               if "multi" in launches else {})})
+        json_line({"kernels": kernels})
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,8 @@
 """Train one fold, then optionally sweep its post-processing parameters
-(counterpart of ``nndet_train``)."""
+(counterpart of ``nndet_train``). In a multi-process job (the ``NNDET_*``
+environment of :mod:`nndetection_tpu_torch.parallel.distributed`) every
+rank runs this command; rank 0 alone writes ``metrics.json`` and sweeps
+(the JAX package's command writes and sweeps on every process)."""
 from __future__ import annotations
 
 import logging
@@ -11,6 +14,7 @@ from nndetection_tpu_torch.cli.common import (
     resolve_task,
     setup_logging,
 )
+from nndetection_tpu_torch.parallel import distributed
 from nndetection_tpu_torch.pipeline import run_sweep, run_train
 from nndetection_tpu_torch.utils.config import compose, get_dotted
 from nndetection_tpu_torch.utils.io import save_json
@@ -81,6 +85,8 @@ def main() -> None:
         resume=args.resume,
         device=device,
     )
+    if not distributed.is_main_process():
+        return  # in a multi-process job rank 0 writes the files and sweeps
     save_json(metrics_log, out_dir / "metrics.json")
     if args.sweep:
         run_sweep(task_dir, model_dir, fold=args.fold, plan_id=cfg["plan"], device=device)

@@ -89,7 +89,9 @@ def save_get_crop(
     """Safe crop extraction (``patching.py:304-457``).
 
     ``shift`` mode moves the origin into bounds; ``pad`` mode zero-pads out-of-
-    bounds regions. Returns the crop and its effective origin in case coords.
+    bounds regions, so that its crop is ``patch_size`` even wholly outside
+    the volume (where the JAX package's slices with a negative end). Returns
+    the crop and its effective origin in case coords.
     """
     spatial = data.shape[spatial_offset:]
     origin = np.asarray(origin, dtype=np.int64)
@@ -97,17 +99,17 @@ def save_get_crop(
     if mode == "shift":
         shifted = np.clip(origin, 0, np.maximum(0, np.asarray(spatial) - patch))
         return extract_tile(data, shifted, patch, spatial_offset), shifted
-    # pad mode
-    lo = np.maximum(origin, 0)
-    hi = np.minimum(origin + patch, spatial)
+    # pad mode: the part inside the volume (empty when there is none), then
+    # zeros up to the patch on either side
+    lo = np.clip(origin, 0, spatial)
+    hi = np.maximum(np.clip(origin + patch, 0, spatial), lo)
     sl = [slice(None)] * spatial_offset + [
         slice(int(a), int(b)) for a, b in zip(lo, hi)
     ]
     crop = data[tuple(sl)]
-    pads = [(0, 0)] * spatial_offset + [
-        (int(max(0, -o)), int(max(0, (o + p) - s)))
-        for o, p, s in zip(origin, patch, spatial)
-    ]
+    pad_lo = np.clip(lo - origin, 0, patch)
+    pad_hi = patch - pad_lo - (hi - lo)
+    pads = [(0, 0)] * spatial_offset + [(int(a), int(b)) for a, b in zip(pad_lo, pad_hi)]
     return np.pad(crop, pads, mode="constant"), origin
 
 

@@ -376,14 +376,16 @@ class OverlapMap:
         self.map[sl] += 1.0
 
     def mean_overlap_in_boxes(self, boxes: np.ndarray) -> np.ndarray:
-        """Mean overlap count inside each box (expected predictions per stream)."""
+        """Mean overlap count inside each box (expected predictions per
+        stream); boxes ``(x1, y1, x2, y2[, z1, z2])`` of the map's rank (the
+        JAX package reads six coordinates whatever the rank)."""
         out = np.ones(len(boxes), dtype=np.float32)
         shape = self.map.shape
         for i, b in enumerate(boxes):
+            bounds = ((b[0], b[2]), (b[1], b[3])) + (((b[4], b[5]),) if len(shape) == 3 else ())
             sl = tuple(
                 slice(int(max(0, np.floor(lo))), int(min(s, max(np.ceil(hi), np.floor(lo) + 1))))
-                for lo, hi, s in ((b[0], b[2], shape[0]), (b[1], b[3], shape[1]),
-                                  (b[4], b[5], shape[2]))
+                for (lo, hi), s in zip(bounds, shape)
             )
             region = self.map[sl]
             out[i] = float(region.mean()) if region.size else 1.0

@@ -10,6 +10,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from nndetection_tpu_torch.models.conv import ConvNormAct, Kernel, _init_kernel
+from nndetection_tpu_torch.parallel.spatial import all_reduce_sum, get_spatial_axis
 
 
 class StackedConvBlock(nn.Module):
@@ -112,6 +113,11 @@ class SELayer(nn.Module):
         def dense(layer: nn.Linear, v: torch.Tensor) -> torch.Tensor:
             return F.linear(v, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
 
-        s = x.float().mean(dim=tuple(range(2, x.dim()))).to(x.dtype)
+        s = x.float().mean(dim=tuple(range(2, x.dim())))
+        group = get_spatial_axis()
+        if group is not None:
+            # the squeeze spans the global volume under spatial partitioning
+            s = all_reduce_sum(s, group) / torch.distributed.get_world_size(group)
+        s = s.to(x.dtype)
         s = torch.sigmoid(dense(self.Dense_1, torch.relu(dense(self.Dense_0, s))))
         return x * s.reshape(*s.shape, *([1] * (x.dim() - 2)))

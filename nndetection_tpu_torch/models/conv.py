@@ -19,6 +19,14 @@ with ``param_dtype=float32``. Submodules carry the flax scope names
 (``Conv_0``, ``ConvTranspose_0``, ``InstanceNorm_0``, ``GroupNorm_0``) so that
 a flax parameter tree maps onto the ``state_dict`` by renaming leaves
 (:mod:`nndetection_tpu_torch.bridge`).
+
+Inside :func:`nndetection_tpu_torch.parallel.spatial.spatial_partitioning`
+the same modules, with the same parameters, run on a z-slab of the volume:
+a 3D ``Conv`` exchanges halos with its neighbours, the norms take the
+statistics of the global volume, the fused conv is off (as in the JAX
+package, ``models/conv.py:37-100, 288-305, 375-420, 466-475``). A
+transposed conv with kernel == stride reads one input voxel per output
+voxel, so it runs as it is.
 """
 from __future__ import annotations
 
@@ -31,7 +39,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from nndetection_tpu_torch.ops import conv_in_stats
-from nndetection_tpu_torch.ops.instance_norm import instance_norm
+from nndetection_tpu_torch.ops.instance_norm import instance_norm, spatial_instance_norm
+from nndetection_tpu_torch.parallel.spatial import (
+    get_spatial_axis,
+    same_padding,
+    spatial_conv,
+    spatial_group_norm,
+)
 
 Kernel = Union[int, Sequence[int]]
 
@@ -46,15 +60,6 @@ def _to_tuple(k: Kernel, dim: int = 3) -> Tuple[int, ...]:
     if isinstance(k, int):
         return (k,) * dim
     return tuple(int(v) for v in k)
-
-
-def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
-    """(low, high) padding of XLA's ``SAME`` along one axis: the output has
-    ``ceil(size / stride)`` positions and the odd pad goes to the high side
-    (k=3, s=2 on an even size pads (0, 1), where torch's ``padding=1`` would
-    pad (1, 1))."""
-    total = max((math.ceil(size / stride) - 1) * stride + kernel - size, 0)
-    return total // 2, total - total // 2
 
 
 def _init_kernel(w: torch.Tensor, init: str, fan_in: int, generator) -> None:
@@ -98,6 +103,11 @@ class Conv(nn.Module):
             self.bias.data.fill_(self.bias_value)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = self.bias.to(x.dtype) if self.bias is not None else None
+        group = get_spatial_axis()
+        if group is not None and self.weight.dim() == 5:
+            return channels_last(
+                spatial_conv(x, self.weight.to(x.dtype), bias, self.strides, group))
         pads = [same_padding(n, k, s) for n, k, s in
                 zip(x.shape[2:], self.kernel_size, self.strides)]
         if all(lo == hi for lo, hi in pads):
@@ -106,7 +116,6 @@ class Conv(nn.Module):
             # asymmetric SAME: pad explicitly (F.pad lists the last axis first)
             x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
             padding = 0
-        bias = self.bias.to(x.dtype) if self.bias is not None else None
         conv = F.conv3d if self.weight.dim() == 5 else F.conv2d
         return channels_last(conv(x, self.weight.to(x.dtype), bias, self.strides, padding))
 
@@ -174,6 +183,10 @@ class InstanceNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # [B, C, *spatial] in channel-innermost memory is a contiguous
         # [B, *spatial, C] map once the channel axis is moved last
+        group = get_spatial_axis()
+        if group is not None:
+            y = spatial_instance_norm(x.movedim(1, -1), self.weight, self.bias, self.eps, group)
+            return y.movedim(-1, 1)
         y = instance_norm(
             x.movedim(1, -1), self.weight, self.bias, self.eps,
             plane_stride=in_plane_stride(x.dim()),
@@ -195,6 +208,10 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         gn = self.GroupNorm_0
+        group = get_spatial_axis()
+        if group is not None:
+            return channels_last(spatial_group_norm(x, gn.num_groups, gn.weight, gn.bias, gn.eps,
+                                                    group))
         return channels_last(
             F.group_norm(x, gn.num_groups, gn.weight.to(x.dtype), gn.bias.to(x.dtype), gn.eps))
 
@@ -241,6 +258,7 @@ class ConvNormAct(nn.Module):
     def _fused(self, x: torch.Tensor) -> bool:
         # supported() takes 3D convs only, as in the JAX package
         return (conv_fused() and self.norm == "instance" and not self.transposed
+                and get_spatial_axis() is None
                 and conv_in_stats.supported(
                     (x.shape[0], *x.shape[2:], x.shape[1]), self.Conv_0.kernel_size,
                     self.Conv_0.strides, x.dim() - 2))

@@ -17,11 +17,17 @@ import torch
 from torch import nn
 
 from nndetection_tpu_torch.models.conv import Conv, ConvNormAct
+from nndetection_tpu_torch.parallel.spatial import gather_spatial, get_spatial_axis
 
 
 def _flatten(y: torch.Tensor, k: int) -> torch.Tensor:
-    """``[N, A*k, *spatial]`` -> ``[N, prod(spatial)*A, k]``, position-major."""
-    return y.movedim(1, -1).reshape(y.shape[0], -1, k)
+    """``[N, A*k, *spatial]`` -> ``[N, prod(spatial)*A, k]``, position-major.
+    Under spatial partitioning the ranks' flattened blocks are all-gathered:
+    the anchor order is z-major and the volume is sharded along z, so each
+    rank's block is a contiguous slice of the global order."""
+    flat = y.movedim(1, -1).reshape(y.shape[0], -1, k)
+    group = get_spatial_axis()
+    return flat if group is None else gather_spatial(flat, group, spatial_axis=1)
 
 
 class ConvTower(nn.Module):

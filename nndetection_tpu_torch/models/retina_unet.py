@@ -42,6 +42,7 @@ from nndetection_tpu_torch.models.heads import (
     Regressor,
     Segmenter,
 )
+from nndetection_tpu_torch.parallel.spatial import gather_spatial, get_spatial_axis
 
 
 def _tuplify(v: Any) -> Any:
@@ -236,6 +237,11 @@ class RetinaUNet(nn.Module):
             "box_deltas": run(self.regressor, head_maps),
         }
         seg = self.segmenter(decoded)
+        group = get_spatial_axis()
+        if group is not None:
+            # the seg loss runs on the full maps: gather the z-slabs back
+            seg = ([gather_spatial(s, group, spatial_axis=1) for s in seg]
+                   if isinstance(seg, list) else gather_spatial(seg, group, spatial_axis=1))
         if self.cfg.segmenter_deep_supervision:
             out["seg_logits"] = seg[0]
             out.update({f"seg_logits_aux{i}": s for i, s in enumerate(seg[1:], start=1)})

@@ -54,6 +54,7 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from nndetection_tpu_torch.ops import LAUNCHES, _build
 
@@ -557,15 +558,35 @@ class InstanceNormFunction(torch.autograd.Function):
     statistics over planes ``start::step``, the affine apply, and a backward
     of one gradient-sum pass and one input-gradient pass.
 
+    With a process ``group``, ``x4`` is a D-slab of a map sharded over the
+    group's ranks and the norm takes the global map's exact statistics (the
+    JAX package's spatial norm does so whatever ``NNDET_IN_STATS`` says;
+    pass ``start=0, step=1``). Forward: #1's local mean and variance are
+    merged over the group by Chan's formula (the global mean from the
+    summed ``count * mean``, then ``M2 = sum(count * var + count * (mean -
+    global mean)^2)``) before #2 applies them. Backward: #3's local sums
+    give the local parameter gradients, then are summed over the group for
+    #4, which divides by the local voxel count: the summed sums enter it
+    divided by the group's size, so that it divides by the global count.
+    On CPU tensors the plain versions run with the same all-reduces.
+
     It saves its input (in x's type), ``mean`` and ``inv``, never its
     output: ``ConvNormAct`` applies ``relu_`` to the output in place."""
 
     @staticmethod
-    def forward(ctx, x4, gamma, beta, eps: float, start: int, step: int):
+    def forward(ctx, x4, gamma, beta, eps: float, start: int, step: int, group=None):
         mean, var = in_stats(x4, start, step)
+        if group is not None:
+            count = torch.full_like(mean, float(x4.shape[1] * x4.shape[2]))
+            sums = torch.stack([count * mean, count])
+            dist.all_reduce(sums, group=group)
+            g_mean = sums[0] / sums[1]
+            m2 = count * var + count * (mean - g_mean).square()
+            dist.all_reduce(m2, group=group)
+            mean, var = g_mean, m2 / sums[1]
         y = in_apply(x4, mean, var, gamma, beta, eps)
         ctx.save_for_backward(x4, mean, torch.rsqrt(var + eps), gamma)
-        ctx.planes = (start, step)
+        ctx.planes, ctx.group = (start, step), group
         return y
 
     @staticmethod
@@ -573,9 +594,15 @@ class InstanceNormFunction(torch.autograd.Function):
         x4, mean, inv, gamma = ctx.saved_tensors
         dy = dy.contiguous()
         s1, s2 = in_grad_stats(x4, dy, mean, inv)
-        dx = (in_grad_input(x4, dy, mean, inv, gamma, s1, s2, *ctx.planes)
-              if ctx.needs_input_grad[0] else None)
-        return dx, s2.sum(dim=0), s1.sum(dim=0), None, None, None
+        d_gamma, d_beta = s2.sum(dim=0), s1.sum(dim=0)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            if ctx.group is not None:
+                sums = torch.stack([s1, s2])
+                dist.all_reduce(sums, group=ctx.group)
+                s1, s2 = sums / dist.get_world_size(ctx.group)
+            dx = in_grad_input(x4, dy, mean, inv, gamma, s1, s2, *ctx.planes)
+        return dx, d_gamma, d_beta, None, None, None, None
 
 
 def plane_schedule(depth: int, plane_stride: Optional[int]) -> Tuple[int, int]:
@@ -605,7 +632,22 @@ def instance_norm(
     :func:`plane_schedule`. Output in x's type; differentiable through
     :class:`InstanceNormFunction`."""
     start, step = plane_schedule(x.shape[1], plane_stride)
-    y = InstanceNormFunction.apply(_as_map(x), gamma, beta, eps, start, step)
+    y = InstanceNormFunction.apply(_as_map(x), gamma, beta, eps, start, step, None)
+    return y.view(x.shape)
+
+
+def spatial_instance_norm(
+    x: torch.Tensor,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    eps: float = 1e-5,
+    group=None,
+) -> torch.Tensor:
+    """:func:`instance_norm` of a channel-last map ``x [B, D, *spatial, C]``
+    sharded along D over ``group`` (the world when None): exact statistics
+    of the global map (:class:`InstanceNormFunction` with a group)."""
+    group = group if group is not None else dist.group.WORLD
+    y = InstanceNormFunction.apply(_as_map(x), gamma, beta, eps, 0, 1, group)
     return y.view(x.shape)
 
 

@@ -255,13 +255,27 @@ def pool_budget(plan: Any, batch_size: int, memory_bytes: int) -> int:
     return budget
 
 
-def mesh_for_plan(plan: Any, batch_size: int) -> None:
-    """The port trains a plan on one card: a plan that partitions its patch
-    over devices (``n_model > 1``) raises."""
-    if plan.n_model > 1:
-        raise NotImplementedError(
-            f"plan {plan.plan_id} partitions its patch over {plan.n_model} devices; "
-            "multi-GPU training is not ported (ROADMAP.md, queue 1, multi-GPU)")
+def mesh_for_plan(plan: Any, batch_size: int, device_type: str = "cuda"):
+    """The device mesh a plan asks for. A plan with ``n_model > 1`` (the
+    planner's spatial partitioning: the patch exceeds one card) gets a
+    ``(world // n_model, n_model)`` mesh over the process group; it raises
+    when fewer processes than ``n_model`` run, and the data axis must divide
+    ``batch_size``. Other plans return None, and the trainer builds its
+    data-parallel mesh when there is a process group."""
+    n_model = int(plan.n_model)
+    if n_model <= 1:
+        return None
+    from nndetection_tpu_torch.parallel import distributed
+    from nndetection_tpu_torch.parallel.mesh import make_mesh
+
+    world = distributed.process_count()
+    if world < n_model:
+        raise RuntimeError(f"plan requires a model-axis of {n_model} but only {world} "
+                           "process(es) run (NNDET_NUM_PROCESSES)")
+    n_data = world // n_model
+    if batch_size % n_data:
+        raise ValueError(f"batch {batch_size} not divisible by the data axis {n_data}")
+    return make_mesh(n_data, n_model, device_type)
 
 
 def run_train(
@@ -291,7 +305,14 @@ def run_train(
     the card the train loader is the device patch pool, sized by
     :func:`pool_budget`. ``resume=True`` continues from ``model_last.ckpt``
     at its next epoch. ``device`` is the card unless the caller passes
-    another (``"cpu"``)."""
+    another (``"cpu"``).
+
+    Under a multi-process job (``NNDET_COORDINATOR``,
+    ``NNDET_NUM_PROCESSES``, ``NNDET_PROCESS_ID``) each process trains on
+    its own card (``cuda:{rank % device_count}``, or the CPU with
+    ``device="cpu"``): it loads its data index's share of the batch,
+    seeded by that index, and rank 0 alone writes the files. ``run_prep``
+    and the planner stay one process."""
     from nndetection_tpu_torch import modules  # noqa: F401 - registers the variants
     from nndetection_tpu_torch.data.aug_presets import get_augmentation
     from nndetection_tpu_torch.evaluator.det import BoxEvaluator
@@ -301,8 +322,8 @@ def run_train(
     from nndetection_tpu_torch.utils.registry import MODULE_REGISTRY
     from nndetection_tpu_torch.utils.tracking import RunTracker
 
-    distributed.initialize_from_env()
-    dev = resolve_device(device)
+    distributed.initialize_from_env(device)
+    dev = distributed.rank_device(resolve_device(device))
     task_dir, model_dir = Path(task_dir), Path(model_dir)
     prep_dir = task_dir / "preprocessed"
     plan = load_plan(prep_dir / f"{plan_id}.pkl")
@@ -316,32 +337,37 @@ def run_train(
     batch_size = tkw.pop("batch_size", None) or plan.batch_size
     tcfg = TrainerConfig(batch_size=batch_size, **tkw)
     model_cfg = MODULE_REGISTRY[module].model_config(plan, **(model_overrides or {}))
-    mesh_for_plan(plan, batch_size)
+    mesh = mesh_for_plan(plan, batch_size, dev.type)
 
     out_dir = model_dir / f"fold{fold}"
     out_dir.mkdir(parents=True, exist_ok=True)
-    save_pickle(plan, out_dir / "plan.pkl")
+    main = distributed.is_main_process()
+    if main:
+        save_pickle(plan, out_dir / "plan.pkl")
     tracker = RunTracker(
         out_dir,
         params={"module": module, "plan": plan_id, "fold": fold, "trainer": tkw,
                 "batch_size": batch_size},
         tags={"task": task_dir.name},
         device=dev,
-    )
+    ) if main else None
     aug_cfg = get_augmentation(augmentation if augment else "no_aug", tuple(plan.patch_size),
                                dummy_2d=plan.do_dummy_2d, mask_norm_zero=plan.use_nonzero_mask)
-    trainer = Trainer(model_cfg, tcfg, device=dev, output_dir=out_dir, augment_cfg=aug_cfg)
+    trainer = Trainer(model_cfg, tcfg, device=dev, output_dir=out_dir, augment_cfg=aug_cfg,
+                      mesh=mesh)
+    # each rank's card holds its share of the batch
+    local_batch = distributed.local_batch_size(batch_size, trainer.n_model)
     train_loader, val_loader = build_loaders(
         plan,
         prep_dir / plan.plan_id / "imagesTr",
         splits,
         fold,
-        distributed.local_batch_size(batch_size),
+        local_batch,
         oversample=oversample,
         augment=augment,
-        seed=tcfg.seed + fold + 10007 * distributed.process_index(),
+        seed=tcfg.seed + fold + 10007 * trainer.data_index,
         aug_cfg=aug_cfg if augment else None,
-        pool_hbm_budget=pool_budget(plan, batch_size, device_memory_bytes(dev)),
+        pool_hbm_budget=pool_budget(plan, local_batch, device_memory_bytes(dev)),
         num_epochs_hint=tcfg.max_epochs + tcfg.swa_epochs,
         device=dev,
     )

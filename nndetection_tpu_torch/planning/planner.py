@@ -208,8 +208,8 @@ class Planner:
         ``force_patch_size``: a user-pinned patch (transposed axis order).
         When it cannot fit one device at the planned batch, the planner emits
         ``n_model`` in {2, 4} (capped by ``max_model_axis``) instead of
-        shrinking; the port trains such a plan only once multi-GPU is
-        ported (``run_train`` raises for it).
+        shrinking; ``run_train`` trains such a plan over at least
+        ``n_model`` processes (``pipeline.py::mesh_for_plan``).
 
         ``device`` is the card unless the caller passes another (``"cpu"``);
         without CUDA the default raises."""
@@ -266,12 +266,16 @@ class Planner:
         median_shape: np.ndarray,
         in_channels: int,
         num_classes: int,
+        max_instances: int = 32,
     ) -> Dict[str, Any]:
         """Patch/topology search loop: shrink the largest axis until the
-        analytic estimate fits the budget (``c002.py:165-227``)."""
+        analytic estimate fits the budget (``c002.py:165-227``). The probe
+        steps with ``max_instances`` GT slots, the plan's
+        ``max_instances_per_patch`` (the JAX planner's probe always takes
+        32)."""
         if self.force_patch_size is not None:
             return self._plan_forced_patch(
-                target_spacing, in_channels, num_classes
+                target_spacing, in_channels, num_classes, max_instances
             )
         patch = initial_patch_size(target_spacing, median_shape)
         while True:
@@ -317,7 +321,7 @@ class Planner:
                     "mem_compiled_bytes": 0,
                 }
                 return self._compile_validate_arch(
-                    arch, in_channels, num_classes, target_spacing
+                    arch, in_channels, num_classes, target_spacing, max_instances
                 )
             patch = shrink_largest_axis(patch_final, must_div)
 
@@ -327,6 +331,7 @@ class Planner:
         target_spacing: np.ndarray,
         in_channels: int,
         num_classes: int,
+        max_instances: int = 32,
     ) -> Dict[str, Any]:
         """A user-pinned patch is honored, not shrunk: when it cannot fit a
         single chip at the planned batch size, the plan gains ``n_model``
@@ -376,7 +381,7 @@ class Planner:
                 if n_model == 1:
                     # one device: confirm with the probe as usual
                     return self._compile_validate_arch(
-                        arch, in_channels, num_classes, target_spacing
+                        arch, in_channels, num_classes, target_spacing, max_instances
                     )
                 return arch
         raise ValueError(
@@ -429,11 +434,13 @@ class Planner:
         in_channels: int,
         num_classes: int,
         target_spacing: np.ndarray,
+        max_instances: int = 32,
     ) -> Dict[str, Any]:
         """The final fit decision by the measured peak of the real train
-        step on the card: the analytic model drives the inner shrink loop,
-        the probe confirms the result. Over budget, the batch is halved down
-        to the base batch size, then the patch shrinks."""
+        step on the card (with ``max_instances`` GT slots): the analytic
+        model drives the inner shrink loop, the probe confirms the result.
+        Over budget, the batch is halved down to the base batch size, then
+        the patch shrinks."""
         enabled = self.compile_validate
         if enabled == "auto":
             enabled = self.device.type == "cuda"
@@ -446,14 +453,16 @@ class Planner:
         # activations instead of recomputing the forward; affordable only when
         # the larger no-remat footprint fits, which this probe decides
         cfg_nr = self._proxy_model_config(arch, in_channels, num_classes, remat=False)
-        est_nr = probe_train_step_estimate(cfg_nr, arch["batch_size"], device=self.device)
+        est_nr = probe_train_step_estimate(cfg_nr, arch["batch_size"], max_instances,
+                                           device=self.device)
         if est_nr is not None and est_nr.fits(compile_budget):
             arch["remat"] = False
             arch["mem_compiled_bytes"] = est_nr.total_bytes
             return arch
         for _ in range(3):
             cfg = self._proxy_model_config(arch, in_channels, num_classes)
-            est = probe_train_step_estimate(cfg, arch["batch_size"], device=self.device)
+            est = probe_train_step_estimate(cfg, arch["batch_size"], max_instances,
+                                            device=self.device)
             if est is None:  # nothing to probe on this device: keep the analytic plan
                 return arch
             arch["mem_compiled_bytes"] = est.total_bytes
@@ -529,8 +538,15 @@ class Planner:
             info, dataset_properties["intensity_properties"]
         )
 
+        # instance budget per patch: the GT slots of training, and of the probe
+        counts = [
+            p.get("num_instances", 0)
+            for p in dataset_properties.get("per_case", {}).values()
+        ]
+        max_inst = int(min(max(np.percentile(counts, 99) if counts else 8, 8), 64))
+
         arch = self.plan_architecture(
-            target_t, median_shape, info.num_modalities, info.num_classes
+            target_t, median_shape, info.num_modalities, info.num_classes, max_inst
         )
 
         # GT boxes in voxels of the target spacing (transposed order)
@@ -547,13 +563,6 @@ class Planner:
         else:
             boxes_vox = np.zeros((0, info.dim))
         anchors, anchor_score = self.plan_anchors(arch, boxes_vox)
-
-        # instance budget per patch
-        counts = [
-            p.get("num_instances", 0)
-            for p in dataset_properties.get("per_case", {}).values()
-        ]
-        max_inst = int(min(max(np.percentile(counts, 99) if counts else 8, 8), 64))
 
         # class weights (frequency-balanced, reference formula
         # ``architecture/boxes/base.py:228-248``: background gets 1/(C+1),

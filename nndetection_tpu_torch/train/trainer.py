@@ -1,5 +1,6 @@
-"""Training runtime on one device (counterpart of
-:mod:`nndetection_tpu.train.trainer`): SGD with Nesterov momentum and no
+"""Training runtime (counterpart of :mod:`nndetection_tpu.train.trainer`):
+on one device, or one process per device over a ``(data, model)`` mesh;
+SGD with Nesterov momentum and no
 weight decay on norm parameters, global-norm clipping, a guard that skips
 non-finite updates, warm-up + poly learning rate, SWA weight averaging and
 versioned checkpoints.
@@ -24,6 +25,23 @@ masked(add_decayed_weights), sgd(schedule, momentum, nesterov)))``.
 PyTorch updates the model in place: :class:`TrainState` holds the model and
 the optimizer, and the epoch functions return the state they were given.
 
+Multi-process training (:mod:`nndetection_tpu_torch.parallel`): with a
+process group the trainer builds the data mesh over it (or takes the
+``mesh`` it is given) and wraps the model in
+``torch.nn.parallel.DistributedDataParallel`` over the whole world, so that
+the gradient is averaged over ``("data", "model")`` before the clip, the
+guard and SGD, as the JAX step's ``pmean`` comes before optax. Each process
+feeds its own rows of the global batch; its random draws come from its
+data index (the JAX step folds its key with ``axis_index("data")``), equal
+within a model group. The losses are averaged over the ranks, validation
+gathers the detections and ground truth of the data ranks so that every
+evaluator sees the global batch, and only rank 0 writes logs and
+checkpoints, which hold the bare model's ``state_dict``. With a model axis
+above 1, each rank of a model group runs the same module tree on its
+z-slab of the batch under
+:func:`~nndetection_tpu_torch.parallel.spatial.spatial_partitioning`, kept
+open over the backward, which recomputes the forward under ``cfg.remat``.
+
 Batches are prepared (``images``, ``gt_boxes``, ``gt_classes``,
 ``gt_mask``, ``seg``) or raw, as the host loaders make them (``images``,
 ``seg_instances``, ``instance_classes``). With an ``augment_cfg`` a raw
@@ -33,6 +51,7 @@ unchanged.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import resource
 import time
@@ -42,6 +61,8 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from nndetection_tpu_torch import resolve_device
 from nndetection_tpu_torch.data.augment import AugmentConfig, augment_batch, center_crop_batch
@@ -53,6 +74,9 @@ from nndetection_tpu_torch.models.retina_unet import (
     batched_postprocess,
     train_step_loss,
 )
+from nndetection_tpu_torch.parallel import distributed
+from nndetection_tpu_torch.parallel.mesh import axis_size, make_mesh
+from nndetection_tpu_torch.parallel.spatial import spatial_partitioning
 from nndetection_tpu_torch.train.lr import Schedule, swa_schedule
 
 # bump when the checkpoint payload gains or renames fields
@@ -96,6 +120,12 @@ class TrainState:
     swa_count: int = 0
     opt_count: int = 0  # updates applied: the schedule's count
     notfinite_count: int = 0  # non-finite steps in a row
+    ddp: Optional[DistributedDataParallel] = None  # the model, wrapped, in a process group
+
+    @property
+    def net(self) -> torch.nn.Module:
+        """The module a train step runs: the DDP wrapper in a process group."""
+        return self.model if self.ddp is None else self.ddp
 
 
 def decay_mask(model: torch.nn.Module) -> Dict[str, bool]:
@@ -138,7 +168,7 @@ def _host_max_rss_gb() -> float:
 
 class Trainer:
     """Runs the train and validation steps and the epoch loop on one
-    device."""
+    device, or on this process's device of a ``(data, model)`` mesh."""
 
     def __init__(
         self,
@@ -147,6 +177,7 @@ class Trainer:
         device: Union[torch.device, str] = "cuda",
         output_dir: Optional[Path] = None,
         augment_cfg: Optional[AugmentConfig] = None,
+        mesh=None,
     ):
         """Batches carry ``images [B, *patch, C]``, ``gt_boxes``,
         ``gt_classes``, ``gt_mask`` and ``seg``
@@ -154,11 +185,23 @@ class Trainer:
         them from instance segmentations), or, with ``augment_cfg``, they
         may be raw loader batches (:meth:`_prepare`). ``device`` is the card
         unless the caller passes another (``"cpu"``); without CUDA the
-        default raises."""
+        default raises. In a process group ``mesh`` defaults to every
+        process on the data axis
+        (:func:`~nndetection_tpu_torch.parallel.mesh.make_mesh`); a model
+        axis above 1 partitions the patch's z axis (3D models only)."""
         self.cfg = model_cfg
         self.augment_cfg = augment_cfg
         self.tcfg = trainer_cfg
         self.device = resolve_device(device)
+        if mesh is None and dist.is_initialized():
+            mesh = make_mesh(device_type=self.device.type)
+        self.mesh = mesh
+        self.n_model = axis_size(mesh, "model")
+        self.data_index = distributed.data_index(self.n_model)
+        if self.n_model > 1:
+            if model_cfg.dim != 3:
+                raise ValueError("spatial partitioning needs a 3D model (the halo conv is 3D)")
+            self._check_spatial_shardable(model_cfg, self.n_model)
         self.output_dir = Path(output_dir) if output_dir else None
         self.schedule = lr_schedule(trainer_cfg)
         anchors_np, self.anchors_per_level = model_cfg.anchors()
@@ -177,7 +220,71 @@ class Trainer:
         model.to(self.device)
         optimizer, _ = make_optimizer(self.tcfg, model)
         swa = {n: p.detach().clone() for n, p in model.named_parameters()}
-        return TrainState(model=model, optimizer=optimizer, swa_params=swa)
+        ddp = None
+        if self.mesh is not None:
+            ddp = DistributedDataParallel(
+                model, device_ids=[self.device] if self.device.type == "cuda" else None)
+        return TrainState(model=model, optimizer=optimizer, swa_params=swa, ddp=ddp)
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _check_spatial_shardable(cfg: RetinaUNetConfig, n_model: int) -> None:
+        """Every encoder level's z extent must split evenly over the model
+        axis (and stay divisible by the next stride) for halo-exchange
+        convs."""
+        z = int(cfg.patch_size[0])
+        strides_z = [1] + [int(s[0]) for s in cfg.strides]
+        for level, s in enumerate(strides_z):
+            if z % s != 0:
+                raise ValueError(f"patch z={cfg.patch_size[0]} not divisible by strides at "
+                                 f"level {level}")
+            z //= s
+            if z % n_model != 0:
+                raise ValueError(f"level-{level} z extent {z} not divisible by model-axis "
+                                 f"size {n_model}; choose a patch with more z-divisibility")
+
+    def _partitioned(self):
+        """The spatial-partitioning context of this rank's model group (a
+        no-op without a model axis)."""
+        if self.n_model <= 1:
+            return contextlib.nullcontext()
+        return spatial_partitioning(self.mesh.get_group("model"))
+
+    def _forward(self, net: torch.nn.Module, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The model on this rank's z-slab of ``images [B, D, ...]`` under a
+        model axis, on the whole patch otherwise; the outputs are the whole
+        patch's on every rank."""
+        if self.n_model > 1:
+            z = images.shape[1] // self.n_model
+            i = self.mesh.get_local_rank("model")
+            images = images[:, i * z:(i + 1) * z]
+        return net(images)
+
+    def _seeded(self, seed: int) -> torch.Generator:
+        """A generator on the device for ``seed``, decorrelated by the data
+        index (rank 0 of the data axis keeps ``seed``)."""
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(seed + (self.data_index << 32))
+        return generator
+
+    def _mean_over_ranks(self, values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Each scalar averaged over every rank (JAX ``pmean``)."""
+        if self.mesh is None:
+            return values
+        stacked = torch.stack([v.float() for v in values.values()])
+        dist.all_reduce(stacked)
+        stacked /= dist.get_world_size()
+        return dict(zip(values, stacked.unbind()))
+
+    def _gather_data(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``'s rows from every data rank, in data order (the global
+        batch)."""
+        n = axis_size(self.mesh, "data")
+        if n == 1:
+            return t
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t.contiguous(), group=self.mesh.get_group("data"))
+        return torch.cat(parts)
 
     def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
@@ -199,7 +306,7 @@ class Trainer:
         return prepare_targets(data, seg, batch["instance_classes"])
 
     def _losses(self, model, batch, generator) -> Dict[str, torch.Tensor]:
-        preds = model(batch["images"])
+        preds = self._forward(model, batch["images"])
         losses = train_step_loss(self.cfg, preds, self.anchors, self.anchors_per_level, batch,
                                  generator)
         losses["total"] = sum(losses[k] for k in LOSS_KEYS)
@@ -229,16 +336,18 @@ class Trainer:
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
         """One forward, backward and update on a batch already on the
-        device; returns the losses as device scalars. A raw batch takes its
+        device (this process's rows of the global batch); returns the losses
+        as device scalars, averaged over the ranks. A raw batch takes its
         augmentation draws from ``generator`` before the loss's sampler."""
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        batch = self._prepare(batch, generator, train=True)
-        losses = self._losses(state.model, batch, generator)
-        losses["total"].backward()
+        with self._partitioned():
+            batch = self._prepare(batch, generator, train=True)
+            losses = self._losses(state.net, batch, generator)
+            losses["total"].backward()
         self._apply_update(state)
         state.step += 1
-        return {k: v.detach() for k, v in losses.items()}
+        return self._mean_over_ranks({k: v.detach() for k, v in losses.items()})
 
     # ------------------------------------------------------------------
     def train_epoch(self, state: TrainState, batches: Iterable[Dict[str, Any]],
@@ -246,8 +355,7 @@ class Trainer:
         """One pass over ``batches``. The losses stay on the device and are
         read once, at the end; steps with non-finite losses are left out of
         the means and counted."""
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(self.tcfg.seed * 1000 + epoch)
+        generator = self._seeded(self.tcfg.seed * 1000 + epoch)
         metrics: Dict[str, List[torch.Tensor]] = {}
         t0 = time.perf_counter()
         for batch in batches:
@@ -271,29 +379,33 @@ class Trainer:
         """Mean losses and detections per image over ``batches``. An
         ``evaluator`` (:class:`nndetection_tpu_torch.evaluator.det.BoxEvaluator`)
         gets each batch's detections and ground truth as NumPy arrays, and
-        its scores join the result (``monitor_key`` among them)."""
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(999 * (epoch + 1))
+        its scores join the result (``monitor_key`` among them). In a
+        process group the losses are averaged over the ranks and the
+        detections and ground truth gathered over the data ranks, so that
+        every rank's evaluator sees the global batch."""
+        generator = self._seeded(999 * (epoch + 1))
         state.model.eval()
         metrics: Dict[str, List[torch.Tensor]] = {}
         for batch in batches:
             batch = self._prepare(self._to_device(batch), generator, train=False)
-            preds = state.model(batch["images"])
+            with self._partitioned():
+                preds = self._forward(state.model, batch["images"])
             losses = train_step_loss(self.cfg, preds, self.anchors, self.anchors_per_level,
                                      batch, generator)
             dets = batched_postprocess(self.cfg, preds, self.anchors, self.cfg.patch_size,
                                        with_seg=False)
+            dets = {k: self._gather_data(v) for k, v in dets.items()}
+            losses = self._mean_over_ranks(losses)
             losses["detections_per_image"] = dets["valid"].float().sum(-1).mean()
             for k, v in losses.items():
                 metrics.setdefault(k, []).append(v)
             if evaluator is not None:
                 host = {k: v.cpu().numpy() for k, v in dets.items()}
+                gt = {k: self._gather_data(batch[k]).cpu().numpy()
+                      for k in ("gt_boxes", "gt_classes", "gt_mask")}
                 evaluator.add_batch(
                     pred_boxes=host["boxes"], pred_scores=host["scores"],
-                    pred_labels=host["labels"], pred_valid=host["valid"],
-                    gt_boxes=batch["gt_boxes"].cpu().numpy(),
-                    gt_classes=batch["gt_classes"].cpu().numpy(),
-                    gt_mask=batch["gt_mask"].cpu().numpy())
+                    pred_labels=host["labels"], pred_valid=host["valid"], **gt)
         out = {f"val_{k}": float(torch.stack(v).mean()) for k, v in metrics.items()}
         if evaluator is not None:
             out.update(evaluator.finish_online_evaluation()[0])
@@ -369,7 +481,8 @@ class Trainer:
     ) -> TrainState:
         """``max_epochs`` regular and ``swa_epochs`` SWA epochs; at the end
         the SWA average replaces the weights. ``stop_after_epoch`` ends the
-        run early with a resumable checkpoint."""
+        run early with a resumable checkpoint. Logs and checkpoints are rank
+        0's alone."""
         if state is None:
             state = self.init_state()
         total_epochs = self.tcfg.max_epochs + self.tcfg.swa_epochs
@@ -382,9 +495,10 @@ class Trainer:
                 metrics.update(self.val_epoch(state, val_iter_fn(epoch), epoch, evaluator))
             if epoch >= self.tcfg.max_epochs:
                 state = self.update_swa(state)
-            if log_fn:
+            main = distributed.is_main_process()
+            if log_fn and main:
                 log_fn(epoch, metrics)
-            if self.output_dir is not None:
+            if self.output_dir is not None and main:
                 score = metrics.get(self.tcfg.monitor_key)
                 if score is not None and score > best:
                     best = score
@@ -398,7 +512,7 @@ class Trainer:
             with torch.no_grad():
                 for name, p in state.model.named_parameters():
                     p.copy_(state.swa_params[name])
-            if self.output_dir is not None:
+            if self.output_dir is not None and distributed.is_main_process():
                 self.save_checkpoint(state, self.output_dir / "model_last.ckpt",
                                      {"epoch": total_epochs - 1, "swa_final": True})
         return state

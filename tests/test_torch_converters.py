@@ -240,17 +240,20 @@ def test_save_get_crop(mode, spatial_offset, dim):
     shape = (2,) * spatial_offset + tuple(rng.randint(5, 12, dim))
     data = rng.rand(*shape).astype(np.float32)
     spatial = np.asarray(shape[spatial_offset:])
-    for _ in range(25):
-        patch = rng.randint(2, 14, dim)
-        origin = rng.randint(-6, 12, dim)
+    # drawn crops, then one wholly below and one wholly above the volume
+    cases = [(rng.randint(2, 14, dim), rng.randint(-6, 12, dim)) for _ in range(25)]
+    cases += [(np.full(dim, 3), np.full(dim, -5)), (np.full(dim, 3), spatial + 2)]
+    for patch, origin in cases:
         got = tpatching.save_get_crop(data, origin, patch, spatial_offset, mode)
-        want = jpatching.save_get_crop(data, origin, patch, spatial_offset, mode)
-        assert_same(got, want)
         crop, eff = got
-        if not ((origin + patch > 0) & (origin < spatial)).all():
-            # a pad-mode crop wholly outside the volume slices with a
-            # negative end in both packages (ROADMAP.md queue 3)
+        if mode == "pad" and not ((origin + patch > 0) & (origin < spatial)).all():
+            # wholly outside the volume: the JAX package slices with a
+            # negative end and returns another shape; the port pads the
+            # patch with zeros (repaired in the port only)
+            assert crop.shape == data.shape[:spatial_offset] + tuple(patch)
+            assert not crop.any() and (eff == origin).all()
             continue
+        assert_same(got, jpatching.save_get_crop(data, origin, patch, spatial_offset, mode))
         if mode == "pad":
             assert crop.shape[spatial_offset:] == tuple(patch)
         else:

@@ -139,6 +139,25 @@ def test_overlap_map_matches_jax():
     np.testing.assert_array_equal(got.mean_overlap_in_boxes(boxes), want.mean_overlap_in_boxes(boxes))
 
 
+def test_overlap_map_takes_2d_boxes():
+    """The JAX package's ``mean_overlap_in_boxes`` reads six coordinates and
+    fails on a 2D map; the port's gives the 3D result of the same boxes
+    lifted to unit depth."""
+    tiles = [((0, 0), (8, 8)), ((4, 4), (8, 8)), ((6, 0), (10, 10))]
+    boxes = random_boxes(np.random.RandomState(5), 20)[:, :4] * 0.15
+    got, want, jax_2d = ens.OverlapMap((16, 16)), ens.OverlapMap((16, 16, 1)), jax_ens.OverlapMap((16, 16))
+    for origin, size in tiles:
+        got.add_tile(origin, size)
+        want.add_tile((*origin, 0), (*size, 1))
+        jax_2d.add_tile(origin, size)
+    with pytest.raises(IndexError):
+        jax_2d.mean_overlap_in_boxes(boxes)
+    lifted = np.concatenate([boxes, np.tile([0.0, 1.0], (len(boxes), 1))], axis=1)
+    result = got.mean_overlap_in_boxes(boxes)
+    np.testing.assert_array_equal(result, want.mean_overlap_in_boxes(lifted))
+    assert result.max() > 1.0
+
+
 @pytest.mark.parametrize("name", ["BoxEnsemblerSelective", "BoxEnsemblerWBC"])
 def test_states_load_across_packages(tmp_path, name):
     got, want = pair(name, tile_streams(5))

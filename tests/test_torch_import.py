@@ -90,6 +90,8 @@ SLICE_MODULES = [
     "nndetection_tpu_torch.ops.wbc_cluster",
     "nndetection_tpu_torch.parallel",
     "nndetection_tpu_torch.parallel.distributed",
+    "nndetection_tpu_torch.parallel.mesh",
+    "nndetection_tpu_torch.parallel.spatial",
     "nndetection_tpu_torch.pipeline",
     "nndetection_tpu_torch.planning",
     "nndetection_tpu_torch.planning.anchors_opt",
@@ -120,6 +122,7 @@ SLICE_MODULES = [
     "nndetection_tpu_torch.train.trainer",
     "nndetection_tpu_torch.utils",
     "nndetection_tpu_torch.utils.analysis",
+    "nndetection_tpu_torch.utils.bench_env",
     "nndetection_tpu_torch.utils.check",
     "nndetection_tpu_torch.utils.config",
     "nndetection_tpu_torch.utils.io",

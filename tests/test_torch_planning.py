@@ -4,7 +4,8 @@
 ``plan_experiment`` field by field at the same budget without the probe;
 the four branches of the probe's decision under the same injected
 ``MemoryEstimate``s on both sides (the probes themselves differ by design:
-the port measures on the card, the JAX package reads XLA's analysis); the
+the port measures on the card, the JAX package reads XLA's analysis; the
+port's steps with the plan's GT slots, the JAX package's with 32); the
 forced patch with ``n_model`` 2 and 4; ``plan_lowres``; and the defaults
 that tie the planner and the probe to the card. The probe itself is tested
 on the card by ``tests/test_torch_probe_cuda.py``."""
@@ -231,6 +232,29 @@ def test_whole_plan_under_injected_verdict_matches_jax(monkeypatch):
     got = tp.plan_experiment(props("iso3d"), infos("iso3d")[0])
     same_plan(got, jp.plan_experiment(props("iso3d"), infos("iso3d")[1]))
     assert got.mem_compiled_bytes == got.batch_size * GIB > 0
+
+
+def test_probe_steps_with_the_plans_gt_slots(monkeypatch):
+    """The port's probe steps with the plan's ``max_instances_per_patch``
+    GT slots, where the JAX planner's takes 32 whatever the plan trains
+    with (repaired in the port only); under the same injected verdicts the
+    plans are equal."""
+    slots = {"port": [], "jax": []}
+
+    def fake(side):
+        def probe(cfg, batch_size, max_instances=32, **kw):
+            slots[side].append(max_instances)
+            return jest.MemoryEstimate(batch_size * GIB, {})
+        return probe
+
+    monkeypatch.setattr(tplanner, "probe_train_step_estimate", fake("port"))
+    monkeypatch.setattr(jplanner, "probe_train_step_estimate", fake("jax"))
+    tp, jp = planners(compile_validate=True, hbm_budget=10 * GIB)
+    got = tp.plan_experiment(props("iso3d"), infos("iso3d")[0])
+    same_plan(got, jp.plan_experiment(props("iso3d"), infos("iso3d")[1]))
+    assert got.max_instances_per_patch == 8
+    assert slots["port"] == [8] * len(slots["jax"]) and slots["jax"] == [32] * len(slots["jax"])
+    assert slots["port"]
 
 
 def test_out_of_memory_fits_no_budget(monkeypatch):

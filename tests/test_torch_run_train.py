@@ -6,8 +6,8 @@ module variants give the JAX model configurations field by field,
 first batches at the ``run_train`` seed, the pool budget is the JAX
 formula's with the same memory figure, and ``run_train(device="cpu")``
 trains, writes its files and resumes. Also ``DatasetInfo``, the YAML, JSON
-and npz helpers, the task and case-id helpers, and the single-process
-guards."""
+and npz helpers, the task and case-id helpers, and the guards of a job that
+cannot form."""
 import dataclasses
 import json
 
@@ -213,13 +213,38 @@ def test_run_train_writes_its_files_and_resumes(task, tmp_path):
 
 
 def test_run_train_stays_on_one_process(monkeypatch, task, tmp_path):
-    monkeypatch.setenv("NNDET_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    """A job that cannot form fails and leaves no process group: a
+    coordinator nobody serves fails within the group's timeout (not a
+    hang), a coordinator without a process count raises, and a plan that
+    partitions its patch over 2 devices raises in one process. Multi-process
+    runs: ``test_torch_distributed.py``, ``test_torch_spatial.py``."""
+    import socket
+    import time
+
+    import torch.distributed as dist
+
+    from nndetection_tpu_torch.parallel import distributed
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()  # nothing listens there
+    monkeypatch.setattr(distributed, "DEFAULT_TIMEOUT_MIN", 0.05)
+    monkeypatch.setenv("NNDET_COORDINATOR", f"localhost:{port}")
+    monkeypatch.setenv("NNDET_NUM_PROCESSES", "2")
+    monkeypatch.setenv("NNDET_PROCESS_ID", "1")
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError):
+        tpipeline.run_train(task, tmp_path, device="cpu")
+    assert time.monotonic() - t0 < 60 and not dist.is_initialized()
+    monkeypatch.delenv("NNDET_NUM_PROCESSES")
+    with pytest.raises(RuntimeError, match="NNDET_NUM_PROCESSES"):
         tpipeline.run_train(task, tmp_path, device="cpu")
     monkeypatch.delenv("NNDET_COORDINATOR")
     plan = dataclasses.replace(load_plan(task / "preprocessed" / f"{PLAN_ID}.pkl"), n_model=2)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tpipeline.mesh_for_plan(plan, 2)
+    with pytest.raises(RuntimeError, match="model-axis of 2"):
+        tpipeline.mesh_for_plan(plan, 2, "cpu")
+    assert not dist.is_initialized() and not (tmp_path / "fold0").exists()
 
 
 # ------------------------------------------------------ dataset info, YAML
