@@ -27,7 +27,8 @@ Phases, each printing its findings:
    fused layers and at edge shapes, every route at least once, two runs bit
    for bit equal, one JSON line of every LUNA shape's route and times; the IoU matrix (#6) at
    1000 and 4096 boxes, the suppression words (#8) and the keep-scan at
-   1000 and 4096; the WBC cluster kernel at 1000 boxes x 2 classes, at the
+   1000, 4096 and 16384, identical to their plain versions, wall, device
+   and host time; the WBC cluster kernel at 1000 boxes x 2 classes, at the
    consolidate phase's two real inputs (the 8-flip case, one class) and at
    4161, 20000 and 57600 boxes of one class (the scratch in a global
    workspace), bit for bit equal to its plain version, two calls equal, one
@@ -214,6 +215,10 @@ times and bound, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
 non-zero and no result line is printed.
 
+``--parent=DIR`` (with ``kernels``) times #6, #8 and the keep-scan of the
+tree at ``DIR`` (a ``git archive`` of another commit) beside this tree's at
+1000, 4096 and 16384 boxes, in turns, the other tree's in a subprocess
+that builds its kernels into its own ``_build/``.
 ``--profile=DIR`` adds a ``torch.profiler`` trace of one train step, default
 and fused (kernel time by name; the tables into ``DIR/train_profile.txt`` and
 ``DIR/train_fused_profile.txt``). ``--phases=a,b,...``
@@ -276,7 +281,7 @@ CONV_TRAIN = ((8, 96, 128, 128, 32), 32)
 # as an ensemble of 40 streams (5 folds x 8 flips) sees objects, so that the
 # plain cluster loop that checks it runs in seconds
 IOU_SIZES = (1000, 4096)
-SUPPRESSION_SIZES = (1000, 4096)
+SUPPRESSION_SIZES = (1000, 4096, 16384)
 WBC_SHAPE = (1000, 2)
 WBC_SIZES = ((4161, None), (20000, None), (57600, 40))
 WBC_PEAK_N = 20000
@@ -471,6 +476,10 @@ def three_times(fn, reps: int = 20) -> dict:
     """Wall (events around the call), device and host times of ``fn``, ms."""
     return {"ms": median_ms(fn, reps), "device_ms": device_ms(fn, reps),
             "host_ms": host_ms(fn, reps)}
+
+
+def times_text(t: dict) -> str:
+    return f"{t['ms']:.4f} ms (device {t['device_ms']:.4f}, host {t['host_ms']:.4f})"
 
 
 def kernels_launched(fn, calls: int = 4, tries: int = 3) -> list:
@@ -958,13 +967,13 @@ def consolidation_kernel_checks(device, iou_sizes=IOU_SIZES, suppression_sizes=S
         if ulps > TOL["iou_ulps"]:
             raise AssertionError(f"iou_matrix {n}x{n}: {ulps} float32 ulps from the plain version")
         err = float((got - want).abs().max())
-        ms = median_ms(lambda: iou_matrix(b, b), reps)
+        t = three_times(lambda: iou_matrix(b, b), reps)
         plain_ms = median_ms(lambda: iou_matrix_plain(b, b), reps)
         # boxes read once, the matrix written once; ~26 float32 operations per pair
         bnd = bound(nbytes(b, b, got), 26 * n * n, PEAK_F32)
-        log(f"[kernels] iou_matrix {n}x{n}: {ulps} ulps, {ms:.4f} ms (plain {plain_ms:.4f}), "
+        log(f"[kernels] iou_matrix {n}x{n}: {ulps} ulps, {times_text(t)} (plain {plain_ms:.4f}), "
             f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-        note("iou_matrix", err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        note("iou_matrix", err, **t, plain_ms=plain_ms, library_ms=None,
              shape=f"{n} x {n} boxes", **bnd)
         del got, want
 
@@ -979,9 +988,9 @@ def consolidation_kernel_checks(device, iou_sizes=IOU_SIZES, suppression_sizes=S
         if not torch.equal(keep, pkeep):
             raise AssertionError(f"nms_keep_scan {n}: keep flags differ from the plain version")
         times = {
-            "suppression_matrix": median_ms(lambda: suppression_matrix(b, thr), reps),
+            "suppression_matrix": three_times(lambda: suppression_matrix(b, thr), reps),
             "suppression_matrix_plain": median_ms(lambda: suppression_matrix_plain(b, thr), reps),
-            "nms_keep_scan": median_ms(lambda: nms_keep_scan(words, valid), reps),
+            "nms_keep_scan": three_times(lambda: nms_keep_scan(words, valid), reps),
             "nms_keep_scan_plain": median_ms(lambda: nms_keep_scan_plain(words, valid), 3, 1),
         }
         # #8: boxes read once, the words written once, ~26 operations per
@@ -993,15 +1002,84 @@ def consolidation_kernel_checks(device, iou_sizes=IOU_SIZES, suppression_sizes=S
         b_sup = bound(nbytes(b, words), 26 * n * (n - 1) // 2, PEAK_F32)
         b_scan = bound(8 * words_read + 2 * n, words_read, PEAK_F32)
         log(f"[kernels] suppression_matrix {n} boxes thr {thr}: words identical, "
-            f"{times['suppression_matrix']:.4f} ms (plain {times['suppression_matrix_plain']:.4f}), "
-            f"bound {b_sup['bound_ms']:.4f} ms | nms_keep_scan: {len(kept)} kept, identical, "
-            f"{times['nms_keep_scan']:.4f} ms (plain {times['nms_keep_scan_plain']:.4f}), "
+            f"{times_text(times['suppression_matrix'])} "
+            f"(plain {times['suppression_matrix_plain']:.4f}), "
+            f"bound {b_sup['bound_ms']:.4f} ms ({b_sup['bound_by']}) | nms_keep_scan: "
+            f"{len(kept)} kept, identical, {times_text(times['nms_keep_scan'])} "
+            f"(plain {times['nms_keep_scan_plain']:.4f}), "
             f"bound {b_scan['bound_ms']:.5f} ms ({b_scan['bound_by']})")
         for k, bnd in (("suppression_matrix", b_sup), ("nms_keep_scan", b_scan)):
-            note(k, 0.0, ms=times[k], plain_ms=times[k + "_plain"], library_ms=None,
+            note(k, 0.0, **times[k], plain_ms=times[k + "_plain"], library_ms=None,
                  shape=f"{n} boxes, {len(kept)} kept" if k == "nms_keep_scan" else f"{n} boxes",
                  **bnd)
     return out
+
+
+def suppression_times(device, sizes=SUPPRESSION_SIZES, reps=20) -> list:
+    """Wall, device and host ms of #6 (``iou_matrix(b, b)``), #8 and the
+    keep-scan at each size, on seeded clumped boxes (90 % valid, threshold
+    0.1), through the ``nndetection_tpu_torch`` on ``sys.path``: this
+    tree's, or in a ``--suppression-times`` subprocess a parent tree's."""
+    from nndetection_tpu_torch.ops.iou_matrix import iou_matrix
+    from nndetection_tpu_torch.ops.suppression import nms_keep_scan, suppression_matrix
+
+    rows = []
+    for n in sizes:
+        rng = np.random.RandomState(17 + n)
+        b = torch.from_numpy(clumped_boxes(rng, n)).to(device)
+        valid = torch.from_numpy(rng.rand(n) > 0.1).to(device)
+        words = suppression_matrix(b, 0.1)
+        kept = int(nms_keep_scan(words, valid).sum())
+        for name, fn in (("iou_matrix", lambda: iou_matrix(b, b)),
+                         ("suppression_matrix", lambda: suppression_matrix(b, 0.1)),
+                         ("nms_keep_scan", lambda: nms_keep_scan(words, valid))):
+            rows.append(dict(kernel=name, n=n, kept=kept, **three_times(fn, reps)))
+        del words
+    return rows
+
+
+def suppression_times_worker(spec: dict) -> None:
+    """``python3 chip_smoke.py --suppression-times=SPEC``: the times of
+    :func:`suppression_times` for the tree at ``spec["root"]``, whose
+    kernels its own ``ops/_build.py`` builds into its own ``_build/``; one
+    JSON line."""
+    from pathlib import Path
+
+    root = Path(spec["root"]).resolve()
+    sys.path.insert(0, str(root))
+    import nndetection_tpu_torch
+
+    if root not in Path(nndetection_tpu_torch.__file__).resolve().parents:
+        raise RuntimeError(f"imported {nndetection_tpu_torch.__file__}, not the tree at {root}")
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    print(json.dumps({"suppression_times": suppression_times(device, spec["sizes"],
+                                                             spec["reps"])}), flush=True)
+
+
+def suppression_parent_comparison(device, parent: str, sizes=SUPPRESSION_SIZES, reps=20) -> None:
+    """#6, #8 and the keep-scan of the tree at ``parent`` (``--parent=DIR``,
+    for example ``git archive`` of the parent commit) against this tree's,
+    on the same card in one call, in turns: parent, this, this, parent. The
+    parent runs in a subprocess of its own; each run prints its lines."""
+    def parent_run():
+        spec = dict(root=parent, sizes=list(sizes), reps=reps)
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--suppression-times=" + json.dumps(spec)],
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"parent suppression times failed ({proc.returncode}):\n"
+                               f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+        return json.loads(proc.stdout.strip().splitlines()[-1])["suppression_times"]
+
+    runs = []
+    for who in ("parent", "this tree", "this tree", "parent"):
+        t0 = time.perf_counter()
+        rows = parent_run() if who == "parent" else suppression_times(device, sizes, reps)
+        runs.append(dict(tree=who, rows=rows))
+        log(f"[kernels] {who} ({len(runs)} of 4, {time.perf_counter() - t0:.1f} s): "
+            + "; ".join(f"{r['kernel']} {r['n']}: {times_text(r)}" for r in rows))
+    json_line({"suppression_compare": dict(parent=os.path.abspath(parent), runs=runs)})
 
 
 def ensemble_boxes(rng, n, per_object):
@@ -1043,7 +1121,7 @@ def table_wbc_input(shape=WBC_SHAPE):
     rng = np.random.RandomState(3)
     for n in IOU_SIZES:
         clumped_boxes(rng, n)
-    for n in SUPPRESSION_SIZES:
+    for n in SUPPRESSION_SIZES[:2]:  # the sizes checked when the table shape was set
         clumped_boxes(rng, n)
         rng.rand(n)
     return wbc_inputs(rng, *shape)
@@ -3975,12 +4053,17 @@ def parse_phases(argv) -> tuple:
 
 
 def main() -> None:
+    times_spec = next((a.split("=", 1)[1] for a in sys.argv[1:]
+                       if a.startswith("--suppression-times=")), None)
+    if times_spec is not None:  # another tree's #6, #8 and keep-scan times
+        return suppression_times_worker(json.loads(times_spec))
     from nndetection_tpu_torch.ops import LAUNCHES
 
     worker = next((a.split("=", 1)[1] for a in sys.argv[1:]
                    if a.startswith("--multi-worker=")), None)
     if worker is not None:  # one rank of the multi phase
         return multi_worker(json.loads(worker))
+    parent = next((a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--parent=")), None)
     profile_dir = next((a.split("=", 1)[1] for a in sys.argv[1:]
                         if a.startswith("--profile=")), None)
     phases = parse_phases(sys.argv[1:])
@@ -3994,6 +4077,8 @@ def main() -> None:
         LAUNCHES.clear()
         summary = phase_kernels(device)
         launches["kernels"] = dict(LAUNCHES)
+        if parent is not None:
+            suppression_parent_comparison(device, parent)
     else:
         if "conv" in phases:
             conv_kernel_checks(device)

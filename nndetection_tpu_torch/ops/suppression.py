@@ -119,7 +119,7 @@ def _nms_keep_scan_cuda(sup: torch.Tensor, valid_sorted: torch.Tensor) -> torch.
     _check_cuda(valid_sorted, torch.bool, (n,), "nms_keep_scan valid")
     if sup.device != valid_sorted.device:
         raise ValueError("words and valid flags on different devices")
-    keep = torch.empty((n,), dtype=torch.uint8, device=sup.device)
+    keep = torch.empty((n,), dtype=torch.bool, device=sup.device)
     fn = _kernel("nms_keep_scan_launch", [
         ctypes.c_void_p, ctypes.c_void_p,  # words, valid
         ctypes.c_int, ctypes.c_int,        # n, words per row
@@ -130,7 +130,7 @@ def _nms_keep_scan_cuda(sup: torch.Tensor, valid_sorted: torch.Tensor) -> torch.
                  torch.cuda.current_stream().cuda_stream)
     _build.check(err, "nms_keep_scan_launch")
     LAUNCHES["nms_keep_scan"] += 1
-    return keep.bool()
+    return keep
 
 
 def suppression_matrix(boxes_sorted: torch.Tensor, iou_threshold: float) -> torch.Tensor:

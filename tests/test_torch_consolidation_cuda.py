@@ -1,7 +1,9 @@
 """The consolidation kernels on the card against their plain versions, at
 ``chip_smoke.py``'s sizes: the IoU matrix (#6, ``csrc/iou_matrix.cu``)
 within ``TOL["iou_ulps"]`` float32 ulps, the suppression words (#8,
-``csrc/suppression_matrix.cu``) and the greedy keep-scan identical, the WBC
+``csrc/suppression_matrix.cu``) and the greedy keep-scan identical (also
+on the named edge cases of ``test_torch_nms_scan_walk.py``, one launch
+each, and at 16384 boxes), the WBC
 cluster kernel (``csrc/wbc_cluster.cu``) bit for bit equal to its plain
 version, two calls equal, on the edge cases of ``test_torch_wbc_walk.py``
 with its scratch in shared memory and in the workspace, and the device WBC
@@ -25,6 +27,7 @@ from nndetection_tpu_torch.ops.suppression import (
     nms_keep_scan, nms_keep_scan_plain, suppression_matrix, suppression_matrix_plain)
 from nndetection_tpu_torch.ops.wbc_cluster import wbc_cluster, wbc_cluster_plain
 # by module name: a machine with the card may have another package named `tests`
+from test_torch_nms_scan_walk import SCAN_CASES, make_scan_case, ranked
 from test_torch_wbc_walk import CASES, make_case
 
 
@@ -67,6 +70,29 @@ def test_suppression_words_and_keep_scan(cuda_device, n, thr):
     assert torch.equal(keep, pkeep) and keep.any()
     torch.cuda.synchronize()
     assert (LAUNCHES["suppression_matrix"], LAUNCHES["nms_keep_scan"]) == (n0[0] + 1, n0[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SCAN_CASES))
+def test_suppression_and_keep_scan_edge_cases(cuda_device, name):
+    """Each named case, its rows in their given order (invalid rows
+    anywhere) and ranked as ``nms_mask`` ranks them, at each of its
+    thresholds: the words and the flags identical to the plain versions on
+    the CPU copies, one launch of each kernel."""
+    boxes, scores, valid, thrs = make_scan_case(name)
+    for thr in thrs:
+        for b, v in ((boxes, valid), ranked(boxes, scores, valid)[1:]):
+            b, v = torch.from_numpy(b), torch.from_numpy(v)
+            n0 = LAUNCHES["suppression_matrix"], LAUNCHES["nms_keep_scan"]
+            words = suppression_matrix(b.to(cuda_device), thr)
+            keep = nms_keep_scan(words, v.to(cuda_device))
+            torch.cuda.synchronize()
+            assert (LAUNCHES["suppression_matrix"], LAUNCHES["nms_keep_scan"]) == (n0[0] + 1,
+                                                                                  n0[1] + 1)
+            pwords = suppression_matrix_plain(b, thr)
+            assert keep.dtype == torch.bool and keep.device == words.device
+            assert torch.equal(words.cpu(), pwords)
+            assert torch.equal(keep.cpu(), nms_keep_scan_plain(pwords, v))
 
 
 @pytest.mark.cuda
