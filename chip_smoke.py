@@ -19,21 +19,27 @@ Phases, each printing its findings:
    at the LUNA plan's stage shapes, bf16 and f32, exact and
    plane-subsampled, and at the train batch's stage 0; NMS (#7) at 16 x 1000,
    2 x 10000 and 2 x 20000 boxes (the last with its scratch in a global
-   workspace), also with 8-level tied scores and an all -inf image, wall,
-   device and host time; the fused
+   workspace), also with 8-level tied scores and an all -inf image, and at
+   16 x 1000 on the NaN case (``special_boxes``: NaN, +-inf and signed-zero
+   coordinates, flat boxes), wall, device and host time; the fused
    conv + statistics (#5) at every fused LUNA
    shape at batch 2 and stage 0b at the train batch, each on the route its
    plan picks and timed on the others it allows, then at the tiny model's
    fused layers and at edge shapes, every route at least once, two runs bit
    for bit equal, one JSON line of every LUNA shape's route and times; the IoU matrix (#6) at
-   1000 and 4096 boxes, the suppression words (#8) and the keep-scan at
+   1000, 4096, 16384 and 4097 boxes on clumped boxes and on one dense
+   clump, n x (n // 2 + 3) and the NaN case (1000 x 1001 both ways), NaN at
+   the plain version's positions and its bits elsewhere, timed beside its
+   other grids, one JSON line of every size's times; the suppression words
+   (#8) and the keep-scan at
    1000, 4096 and 16384, identical to their plain versions, wall, device
    and host time; the WBC cluster kernel at 1000 boxes x 2 classes, at the
    consolidate phase's two real inputs (the 8-flip case, one class) and at
    4161, 20000 and 57600 boxes of one class (the scratch in a global
    workspace), bit for bit equal to its plain version, two calls equal, one
    launch per call, wall, device and host time, the peak memory of one call
-   at 20000, one JSON line of every input's times), with
+   at 20000, one JSON line of every input's times, then on the NaN case
+   (``special_boxes``, a NaN weight in one box of ten)), with
    median times from CUDA events, the time of one PyTorch call computing
    the same function where there is one, and the bound (HBM bytes, or
    float32 or tensor-core flops, at the H100's published peaks);
@@ -215,22 +221,24 @@ times and bound, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
 non-zero and no result line is printed.
 
-``--parent=DIR`` (with ``kernels``) times #6, #8 and the keep-scan of the
-tree at ``DIR`` (a ``git archive`` of another commit) beside this tree's at
-1000, 4096 and 16384 boxes, in turns, the other tree's in a subprocess
-that builds its kernels into its own ``_build/``.
+``--parent=DIR`` (with ``kernels`` or ``iou``) times #8 and the keep-scan
+at 1000, 4096 and 16384 boxes, #6 at ``IOU_SIZES`` on clumped and dense
+boxes, and #7 and the cluster kernel at their table shapes, of the tree at
+``DIR`` (a ``git archive`` of another commit) beside this tree's, in turns,
+the other tree's in a subprocess that builds its kernels into its own
+``_build/``.
 ``--profile=DIR`` adds a ``torch.profiler`` trace of one train step, default
 and fused (kernel time by name; the tables into ``DIR/train_profile.txt`` and
 ``DIR/train_fused_profile.txt``). ``--phases=a,b,...``
 runs only the phases named (of ``build``, ``kernels``, ``conv``, ``norm``,
-``nms`` and ``wbc`` (#5's, #1's, #7's and the cluster kernel's checks
-alone), ``reference``, ``forward``, ``serve``, ``consolidate``,
+``nms``, ``wbc`` and ``iou`` (#5's, #1's, #7's, the cluster kernel's and
+#6's checks alone), ``reference``, ``forward``, ``serve``, ``consolidate``,
 ``nms_mask``, ``sweep``, ``deploy``, ``train``, ``train_aug``,
 ``run_train``, ``multi``, ``prep``, ``cli``, ``luna``, ``2d``, ``serve_fused``,
 ``train_fused``); the
 device phase always runs, the ``kernels`` JSON line only when every phase
-it reads ran. With no argument every phase but ``conv``, ``norm``, ``nms``
-and ``wbc`` runs (``kernels`` holds them).
+it reads ran. With no argument every phase but ``conv``, ``norm``, ``nms``,
+``wbc`` and ``iou`` runs (``kernels`` holds them).
 """
 from __future__ import annotations
 
@@ -280,7 +288,11 @@ CONV_TRAIN = ((8, 96, 128, 128, 32), 32)
 # where most boxes are clusters of their own, and the previous kernel's cap
 # as an ensemble of 40 streams (5 folds x 8 flips) sees objects, so that the
 # plain cluster loop that checks it runs in seconds
-IOU_SIZES = (1000, 4096)
+IOU_SIZES = (1000, 4096, 16384, 4097)
+# #6's sizes whose boxes come first in the kernels phase's stream of draws,
+# ahead of #8's and the cluster kernel's table input, as in every run since
+# those were ported; #6's other sizes draw their own
+IOU_STREAM_SIZES = (1000, 4096)
 SUPPRESSION_SIZES = (1000, 4096, 16384)
 WBC_SHAPE = (1000, 2)
 WBC_SIZES = ((4161, None), (20000, None), (57600, 40))
@@ -318,8 +330,9 @@ TOL = {
     # then Chan's combine)
     "conv_stats": dict(rtol=1e-4, atol=1e-5),
     # the IoU matrix: the Pallas formula's order in IEEE float32 on both
-    # sides (-fmad=false): bit-equal, at most one float32 ulp allowed
-    "iou_ulps": 1,
+    # sides (-fmad=false), NaN carried through both: the same bits, NaN at
+    # the same positions
+    "iou_ulps": 0,
     # the consolidated case on the card against its device formulation on
     # the CPU: float32 on both, summed in the same order (the plain cluster
     # loop follows the kernel's); the bits agree, this is the stated bound
@@ -807,6 +820,18 @@ def nms_kernel_checks(device, shapes=NMS_SHAPES, reps=20, thr=0.6) -> dict:
                                      "differ from the plain version")
             if sc is scores:
                 kept = int(wv.sum())
+        if ni == 0:  # the named NaN case: special_boxes in every image
+            nrng = np.random.RandomState(7)
+            sp = torch.from_numpy(np.stack([special_boxes(nrng, n) for _ in range(n_img)]))
+            sp = sp.to(device)
+            for t_sp in (thr, -0.1):
+                wi, wv = nms_topk_plain(sp, scores, t_sp, steps)
+                ri, rv = nms_topk(sp, scores, t_sp, max_out)
+                if not (torch.equal(ri[:, :steps], wi.long()) and torch.equal(rv[:, :steps], wv)):
+                    raise AssertionError(f"nms_topk {n_img}x{n}, NaN case, threshold {t_sp}: "
+                                         "indices or valid flags differ from the plain version")
+            log(f"[kernels] nms_topk images {n_img} boxes {n}, NaN case (NaN, +-inf, signed "
+                f"zeros; thresholds {thr} and -0.1): indices identical")
         plain_ms = median_ms(lambda: nms_topk_plain(boxes, scores, thr, steps), max(3, reps // 4), 1)
         t = three_times(lambda: nms_topk(boxes, scores, thr, max_out), reps)
         log(f"[kernels] nms_topk images {n_img} boxes {n} max_out {max_out}: indices identical "
@@ -943,39 +968,150 @@ def clumped_boxes(rng, n, extent=300.0):
     return np.stack([lo[:, 0], lo[:, 1], hi[:, 0], hi[:, 1], lo[:, 2], hi[:, 2]], 1).astype(np.float32)
 
 
+def dense_boxes(rng, n, extent=300.0):
+    """``n`` seeded boxes ``[n, 6]`` float32 in one clump: centres within 2
+    of the middle, half sizes 8-12, so that every pair meets and every IoU
+    of #6 takes its division."""
+    ctr = extent / 2 + rng.uniform(-2, 2, (n, 3))
+    half = rng.uniform(8, 12, (n, 3))
+    lo, hi = ctr - half, ctr + half
+    return np.stack([lo[:, 0], lo[:, 1], hi[:, 0], hi[:, 1], lo[:, 2], hi[:, 2]], 1).astype(np.float32)
+
+
+def special_boxes(rng, n):
+    """``n`` seeded boxes ``[n, 6]`` float32 in clumps around the origin,
+    with the coordinates a diverged model or a padded input gives: a NaN
+    coordinate in one box of ten, +inf or -inf in one of ten, flat boxes,
+    and boxes that end or start at 0 along x, each zero signed at random (a
+    box ending at -0 beside one starting at +0 gives min - max = -0)."""
+    k = max(n // 6, 1)
+    ctr = rng.uniform(-6, 6, (k, 3))[rng.randint(0, k, n)] + rng.uniform(-1, 1, (n, 3))
+    half = rng.uniform(1, 6, (n, 3))
+    lo, hi = ctr - half, ctr + half
+    b = np.stack([lo[:, 0], lo[:, 1], hi[:, 0], hi[:, 1], lo[:, 2], hi[:, 2]], 1).astype(np.float32)
+    touch = rng.randint(0, 5, n)  # 0: ends at 0 along x, 1: starts there
+    b[touch == 0, 2] = 0.0
+    b[touch == 0, 0] = -half[touch == 0, 0]
+    b[touch == 1, 0] = 0.0
+    b[touch == 1, 2] = half[touch == 1, 0]
+    b[(b == 0) & (rng.rand(n, 6) < 0.5)] = -0.0
+    flat = rng.rand(n) < 0.05
+    b[flat, 3] = b[flat, 1]
+    for value, share in ((np.nan, 0.1), (np.inf, 0.05), (-np.inf, 0.05)):
+        hit = np.nonzero(rng.rand(n) < share)[0]
+        b[hit, rng.randint(0, 6, len(hit))] = value
+    return b
+
+
+def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Whether two float32 tensors hold NaN at the same positions and the
+    same bits everywhere else (NaN payloads may differ)."""
+    nan = torch.isnan(want)
+    return (got.shape == want.shape and torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
+
+
+def iou_ulps(name: str, got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """#6's output against the plain version's: NaN must be at the same
+    positions; returns the float32 ulps and the absolute error elsewhere,
+    and raises above ``TOL["iou_ulps"]``."""
+    nan = torch.isnan(want)
+    if got.shape != want.shape or not torch.equal(torch.isnan(got), nan):
+        raise AssertionError(f"iou_matrix {name}: shape or NaN positions differ from the plain "
+                             "version")
+    g, w = got[~nan], want[~nan]
+    if not g.numel():
+        return 0, 0.0
+    ulps = int((g.view(torch.int32).long() - w.view(torch.int32).long()).abs().max())
+    if ulps > TOL["iou_ulps"]:
+        raise AssertionError(f"iou_matrix {name}: {ulps} float32 ulps from the plain version")
+    return ulps, float((g - w).abs().max())
+
+
+def iou_kernel_checks(device, sizes=IOU_SIZES, streamed=None, reps=20) -> dict:
+    """#6 against its plain version on the card (:func:`iou_ulps`): at each
+    size n x n of clumped boxes (most pairs apart: the division skipped;
+    ``streamed`` holds the draws of ``IOU_STREAM_SIZES``) and of one dense
+    clump (every pair meets), and n x (n // 2 + 3) clumped (M % 4 = 3 at
+    these sizes: single-float stores); then the named NaN case
+    (``special_boxes``: NaN, +-inf, signed zeros, flat boxes) both ways, with
+    16-byte stores and without. At each size and input it times the call
+    (wall, device, host), the plain version and the device time of the
+    other grids (``rows_per_warp`` 1-16) and states the bound, beside the
+    device time of an empty kernel; one JSON line holds them. The summary
+    is the first size, clumped."""
+    from nndetection_tpu_torch.ops.conv_in_stats import sm_count
+    from nndetection_tpu_torch.ops.iou_matrix import iou_matrix, iou_matrix_plain, plan_iou
+
+    n_sms = sm_count(device)
+    streamed = streamed or {}
+    out, rows, err = {}, [], 0.0
+    # the least device time of one launch, measured as #6's is: an empty kernel
+    floor_ms = device_ms(lambda: torch.cuda._sleep(0), reps)
+    log(f"[kernels] one launch's floor (an empty kernel, torch.cuda._sleep(0)): device "
+        f"{floor_ms:.4f} ms")
+    for n in sizes:
+        clumped = streamed[n] if n in streamed else clumped_boxes(np.random.RandomState(n), n)
+        inputs = {"clumped": clumped, "dense": dense_boxes(np.random.RandomState(n + 1), n)}
+        for kind, boxes in inputs.items():
+            b = torch.from_numpy(boxes).to(device)
+            got, want = iou_matrix(b, b), iou_matrix_plain(b, b)
+            ulps, e = iou_ulps(f"{n}x{n} {kind}", got, want)
+            err = max(err, e)
+            meet = int((want > 0).sum())
+            del want
+            plan = plan_iou(n, n, n_sms)
+            t = three_times(lambda: iou_matrix(b, b), reps)
+            plain_ms = median_ms(lambda: iou_matrix_plain(b, b), reps)
+            other_ms = {f"R{r}": device_ms(lambda: iou_matrix(b, b, plan_iou(n, n, n_sms, r)), reps)
+                        for r in (1, 2, 4, 8, 16) if r != plan.rows_per_warp}
+            # boxes read once, the matrix written once; ~26 float32
+            # operations per pair
+            bnd = bound(nbytes(b, b, got), 26 * n * n, PEAK_F32)
+            log(f"[kernels] iou_matrix {n}x{n} {kind} ({meet} pairs meet): {ulps} ulps, "
+                f"{times_text(t)} (plain {plain_ms:.4f}), bound {bnd['bound_ms']:.4f} ms "
+                f"({bnd['bound_by']}); grid R{plan.rows_per_warp}, {plan.blocks} blocks; other "
+                f"grids (device) "
+                + ", ".join(f"{k} {v:.4f}" for k, v in other_ms.items()))
+            rows.append(dict(n=n, input=kind, pairs_meet=meet, ulps=ulps, **t, plain_ms=plain_ms,
+                             rows_per_warp=plan.rows_per_warp, vector=plan.vector,
+                             blocks=plan.blocks, other_grids_ms=other_ms,
+                             bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"]))
+            if not out:
+                out = dict(t, plain_ms=plain_ms, library_ms=None, shape=f"{n} x {n} boxes", **bnd)
+            del got
+        b2 = torch.from_numpy(clumped_boxes(np.random.RandomState(n + 2), n // 2 + 3)).to(device)
+        ulps, e = iou_ulps(f"{n}x{n // 2 + 3}", iou_matrix(b, b2), iou_matrix_plain(b, b2))
+        err = max(err, e)
+        log(f"[kernels] iou_matrix {n}x{n // 2 + 3} dense x clumped: {ulps} ulps")
+    rng = np.random.RandomState(5)
+    sp, sp2 = (torch.from_numpy(special_boxes(rng, k)).to(device) for k in (1000, 1001))
+    for x, y in ((sp, sp2), (sp2, sp), (sp, sp)):
+        got, want = iou_matrix(x, y), iou_matrix_plain(x, y)
+        ulps, e = iou_ulps(f"NaN case {len(x)}x{len(y)}", got, want)
+        log(f"[kernels] iou_matrix NaN case {len(x)}x{len(y)}: NaN at the plain version's "
+            f"{int(torch.isnan(want).sum())} positions, {ulps} ulps elsewhere")
+    json_line({"iou_matrix_shapes": rows, "empty_kernel_device_ms": floor_ms})
+    out["max_abs_err"] = err
+    return out
+
+
 def consolidation_kernel_checks(device, iou_sizes=IOU_SIZES, suppression_sizes=SUPPRESSION_SIZES,
                                 reps=20) -> dict:
-    """#6, #8 and the keep-scan against their plain versions on the card;
-    the summary of each is its first shape."""
-    from nndetection_tpu_torch.ops.iou_matrix import iou_matrix, iou_matrix_plain
+    """#6 (:func:`iou_kernel_checks`), #8 and the keep-scan against their
+    plain versions on the card; the summary of each is its first shape."""
     from nndetection_tpu_torch.ops.suppression import (
         nms_keep_scan, nms_keep_scan_plain, num_words, suppression_matrix,
         suppression_matrix_plain)
 
     rng = np.random.RandomState(3)
-    out = {}
+    streamed = {n: clumped_boxes(rng, n) for n in IOU_STREAM_SIZES}
+    out = {"iou_matrix": iou_kernel_checks(device, iou_sizes, streamed, reps)}
 
     def note(name, err, **row):
         if name not in out:
             out[name] = dict(row, max_abs_err=err)
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
-
-    for n in iou_sizes:
-        b = torch.from_numpy(clumped_boxes(rng, n)).to(device)
-        got, want = iou_matrix(b, b), iou_matrix_plain(b, b)
-        ulps = int((got.view(torch.int32) - want.view(torch.int32)).abs().max())
-        if ulps > TOL["iou_ulps"]:
-            raise AssertionError(f"iou_matrix {n}x{n}: {ulps} float32 ulps from the plain version")
-        err = float((got - want).abs().max())
-        t = three_times(lambda: iou_matrix(b, b), reps)
-        plain_ms = median_ms(lambda: iou_matrix_plain(b, b), reps)
-        # boxes read once, the matrix written once; ~26 float32 operations per pair
-        bnd = bound(nbytes(b, b, got), 26 * n * n, PEAK_F32)
-        log(f"[kernels] iou_matrix {n}x{n}: {ulps} ulps, {times_text(t)} (plain {plain_ms:.4f}), "
-            f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-        note("iou_matrix", err, **t, plain_ms=plain_ms, library_ms=None,
-             shape=f"{n} x {n} boxes", **bnd)
-        del got, want
 
     thr = 0.1  # the model-level NMS's default model_iou
     for n in suppression_sizes:
@@ -1015,13 +1151,18 @@ def consolidation_kernel_checks(device, iou_sizes=IOU_SIZES, suppression_sizes=S
     return out
 
 
-def suppression_times(device, sizes=SUPPRESSION_SIZES, reps=20) -> list:
-    """Wall, device and host ms of #6 (``iou_matrix(b, b)``), #8 and the
-    keep-scan at each size, on seeded clumped boxes (90 % valid, threshold
-    0.1), through the ``nndetection_tpu_torch`` on ``sys.path``: this
+def suppression_times(device, sizes=SUPPRESSION_SIZES, reps=20, iou_sizes=IOU_SIZES) -> list:
+    """Wall, device and host ms of #8 and the keep-scan at each size of
+    ``sizes``, on seeded clumped boxes (90 % valid, threshold 0.1); of #6
+    (``iou_matrix(b, b)``) at each size of ``iou_sizes`` on clumped boxes and
+    on one dense clump; of #7 and the cluster kernel at their table shapes
+    (16 images x 1000 boxes, max_out 100, threshold 0.6; 1000 boxes x 2
+    classes). Through the ``nndetection_tpu_torch`` on ``sys.path``: this
     tree's, or in a ``--suppression-times`` subprocess a parent tree's."""
     from nndetection_tpu_torch.ops.iou_matrix import iou_matrix
+    from nndetection_tpu_torch.ops.nms import nms_topk
     from nndetection_tpu_torch.ops.suppression import nms_keep_scan, suppression_matrix
+    from nndetection_tpu_torch.ops.wbc_cluster import wbc_cluster
 
     rows = []
     for n in sizes:
@@ -1030,11 +1171,22 @@ def suppression_times(device, sizes=SUPPRESSION_SIZES, reps=20) -> list:
         valid = torch.from_numpy(rng.rand(n) > 0.1).to(device)
         words = suppression_matrix(b, 0.1)
         kept = int(nms_keep_scan(words, valid).sum())
-        for name, fn in (("iou_matrix", lambda: iou_matrix(b, b)),
-                         ("suppression_matrix", lambda: suppression_matrix(b, 0.1)),
+        for name, fn in (("suppression_matrix", lambda: suppression_matrix(b, 0.1)),
                          ("nms_keep_scan", lambda: nms_keep_scan(words, valid))):
             rows.append(dict(kernel=name, n=n, kept=kept, **three_times(fn, reps)))
         del words
+    for n in iou_sizes:
+        for kind, make in (("clumped", clumped_boxes), ("dense", dense_boxes)):
+            b = torch.from_numpy(make(np.random.RandomState(17 + n), n)).to(device)
+            rows.append(dict(kernel="iou_matrix", n=n, input=kind,
+                             **three_times(lambda: iou_matrix(b, b), reps)))
+    boxes, scores = nms_boxes(np.random.RandomState(0), *NMS_SHAPES[0][:2])
+    boxes, scores = boxes.to(device), scores.to(device)
+    rows.append(dict(kernel="nms_topk", n=NMS_SHAPES[0][1], images=NMS_SHAPES[0][0], **three_times(
+        lambda: nms_topk(boxes, scores, 0.6, NMS_SHAPES[0][2]), reps)))
+    wbc_in = [t.to(device) for t in table_wbc_input()]
+    rows.append(dict(kernel="wbc_cluster", n=WBC_SHAPE[0], classes=WBC_SHAPE[1], **three_times(
+        lambda: wbc_cluster(*wbc_in, WBC_SHAPE[1], 0.5, 0.0, 1.0), reps)))
     return rows
 
 
@@ -1053,17 +1205,19 @@ def suppression_times_worker(spec: dict) -> None:
         raise RuntimeError(f"imported {nndetection_tpu_torch.__file__}, not the tree at {root}")
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    print(json.dumps({"suppression_times": suppression_times(device, spec["sizes"],
-                                                             spec["reps"])}), flush=True)
+    print(json.dumps({"suppression_times": suppression_times(
+        device, spec["sizes"], spec["reps"], spec["iou_sizes"])}), flush=True)
 
 
-def suppression_parent_comparison(device, parent: str, sizes=SUPPRESSION_SIZES, reps=20) -> None:
-    """#6, #8 and the keep-scan of the tree at ``parent`` (``--parent=DIR``,
-    for example ``git archive`` of the parent commit) against this tree's,
-    on the same card in one call, in turns: parent, this, this, parent. The
+def suppression_parent_comparison(device, parent: str, sizes=SUPPRESSION_SIZES, reps=20,
+                                  iou_sizes=IOU_SIZES) -> None:
+    """The times of :func:`suppression_times` (#6, #7, #8, the keep-scan
+    and the cluster kernel) of the tree at ``parent`` (``--parent=DIR``, for
+    example ``git archive`` of the parent commit) against this tree's, on
+    the same card in one call, in turns: parent, this, this, parent. The
     parent runs in a subprocess of its own; each run prints its lines."""
     def parent_run():
-        spec = dict(root=parent, sizes=list(sizes), reps=reps)
+        spec = dict(root=parent, sizes=list(sizes), reps=reps, iou_sizes=list(iou_sizes))
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--suppression-times=" + json.dumps(spec)],
             capture_output=True, text=True, timeout=900)
@@ -1075,10 +1229,12 @@ def suppression_parent_comparison(device, parent: str, sizes=SUPPRESSION_SIZES, 
     runs = []
     for who in ("parent", "this tree", "this tree", "parent"):
         t0 = time.perf_counter()
-        rows = parent_run() if who == "parent" else suppression_times(device, sizes, reps)
+        rows = (parent_run() if who == "parent"
+                else suppression_times(device, sizes, reps, iou_sizes))
         runs.append(dict(tree=who, rows=rows))
         log(f"[kernels] {who} ({len(runs)} of 4, {time.perf_counter() - t0:.1f} s): "
-            + "; ".join(f"{r['kernel']} {r['n']}: {times_text(r)}" for r in rows))
+            + "; ".join(f"{r['kernel']} {r['n']}{' ' + r['input'] if 'input' in r else ''}: "
+                        f"{times_text(r)}" for r in rows))
     json_line({"suppression_compare": dict(parent=os.path.abspath(parent), runs=runs)})
 
 
@@ -1119,7 +1275,7 @@ def table_wbc_input(shape=WBC_SHAPE):
     ``consolidation_kernel_checks`` from ``RandomState(3)``, the boxes every
     run has timed the cluster kernel on since it was ported."""
     rng = np.random.RandomState(3)
-    for n in IOU_SIZES:
+    for n in IOU_STREAM_SIZES:
         clumped_boxes(rng, n)
     for n in SUPPRESSION_SIZES[:2]:  # the sizes checked when the table shape was set
         clumped_boxes(rng, n)
@@ -1188,10 +1344,9 @@ def wbc_kernel_checks(device, shape=WBC_SHAPE, sizes=WBC_SIZES, reps=20) -> dict
         t0 = time.perf_counter()
         want = wbc_cluster_plain(*cpu_in, *rest)
         plain_cpu_s = time.perf_counter() - t0
-        for g, a, w in zip(got, again, want):
-            if not (torch.equal(g, a) and torch.equal(g.cpu(), w)):
-                raise AssertionError(f"wbc_cluster {label}: outputs differ from the plain version "
-                                     "or between two calls")
+        if not wbc_same(got, again, want):
+            raise AssertionError(f"wbc_cluster {label}: outputs differ from the plain version "
+                                 "or between two calls")
         classes, iou_thr, _, mw = rest
         seeds = int(wbc_cluster(*dev_in, classes, iou_thr, float("-inf"), mw)[2].sum())
         t = three_times(lambda: wbc_cluster(*dev_in, *rest), reps if n <= 5000 else 5)
@@ -1235,9 +1390,35 @@ def wbc_kernel_checks(device, shape=WBC_SHAPE, sizes=WBC_SIZES, reps=20) -> dict
             f"{plan.smem_bytes} B, workspace {row['workspace_bytes']} B; plain on the CPU "
             f"{plain_cpu_s:.2f} s" + extra)
         rows.append(row)
+    # the named NaN case: special_boxes (NaN, +-inf, signed zeros, flat
+    # boxes) and a NaN weight in one box of ten, 2 classes
+    rng = np.random.RandomState(13)
+    nan_in = wbc_inputs(rng, shape[0], 2)
+    nan_in[0] = torch.from_numpy(special_boxes(rng, shape[0]))
+    nan_in[2][torch.from_numpy(rng.rand(shape[0]) < 0.1)] = float("nan")
+    for score_thr in (0.0, float("-inf")):
+        rest = (2, 0.5, score_thr, 1.0)
+        dev_in = [t.to(device) for t in nan_in]
+        n0 = LAUNCHES["wbc_cluster"]
+        got, again = wbc_cluster(*dev_in, *rest), wbc_cluster(*dev_in, *rest)
+        torch.cuda.synchronize()
+        if LAUNCHES["wbc_cluster"] != n0 + 2 or not wbc_same(got, again,
+                                                             wbc_cluster_plain(*nan_in, *rest)):
+            raise AssertionError(f"wbc_cluster NaN case, score threshold {score_thr}: outputs "
+                                 "differ from the plain version or between two calls")
+        log(f"[wbc] NaN case, {shape[0]} boxes x 2 classes, score threshold {score_thr}: "
+            f"{int(got[2].sum())} emitted, bits equal to the plain version")
     json_line({"wbc_shapes": rows})
     out["max_abs_err"] = 0.0
     return out
+
+
+def wbc_same(got, again, want) -> bool:
+    """The cluster kernel's two calls and the plain version's outputs on the
+    CPU: the same bits (NaN at the same positions) and the same flags."""
+    return all((same_bits(g, a) and same_bits(g.cpu(), w)) if g.is_floating_point()
+               else (torch.equal(g, a) and torch.equal(g.cpu(), w))
+               for g, a, w in zip(got, again, want))
 
 
 def spread(model, scale=100.0):
@@ -4027,17 +4208,17 @@ def profile_train_step(trainer, state, targets, out_dir, label="train") -> None:
         log(f"[profile] {line}")
 
 
-PHASES = ("build", "kernels", "conv", "norm", "nms", "wbc", "reference", "forward", "serve",
+PHASES = ("build", "kernels", "conv", "norm", "nms", "wbc", "iou", "reference", "forward", "serve",
           "consolidate", "nms_mask", "sweep", "deploy", "train", "train_aug", "run_train",
           "multi", "prep", "cli", "luna", "2d", "serve_fused", "train_fused")
 # the checks of one kernel alone, which ``kernels`` includes
-KERNEL_PHASES = ("conv", "norm", "nms", "wbc")
+KERNEL_PHASES = ("conv", "norm", "nms", "wbc", "iou")
 
 
 def parse_phases(argv) -> tuple:
-    """``--phases=a,b,...`` (default: all but ``conv``, ``norm``, ``nms`` and
-    ``wbc``, which ``kernels`` includes: #5's, #1's, #7's and the cluster
-    kernel's checks alone).
+    """``--phases=a,b,...`` (default: all but ``conv``, ``norm``, ``nms``,
+    ``wbc`` and ``iou``, which ``kernels`` includes: #5's, #1's, #7's, the
+    cluster kernel's and #6's checks alone).
     ``nms_mask`` runs on ``consolidate``'s ensemblers, so it brings that
     phase along."""
     arg = next((a.split("=", 1)[1] for a in argv if a.startswith("--phases=")), None)
@@ -4077,8 +4258,6 @@ def main() -> None:
         LAUNCHES.clear()
         summary = phase_kernels(device)
         launches["kernels"] = dict(LAUNCHES)
-        if parent is not None:
-            suppression_parent_comparison(device, parent)
     else:
         if "conv" in phases:
             conv_kernel_checks(device)
@@ -4088,6 +4267,10 @@ def main() -> None:
             nms_kernel_checks(device)
         if "wbc" in phases:
             wbc_kernel_checks(device)
+        if "iou" in phases:
+            iou_kernel_checks(device)
+    if parent is not None and ("kernels" in phases or "iou" in phases):
+        suppression_parent_comparison(device, parent)
     if "reference" in phases:
         phase_reference(device)
         phase_reference_fused(device)

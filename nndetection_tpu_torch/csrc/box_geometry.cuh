@@ -1,5 +1,6 @@
 // Box geometry and the key sort shared by the NMS (nms_topk.cu), IoU matrix
-// (iou_matrix.cu) and WBC cluster (wbc_cluster.cu) kernels.
+// (iou_matrix.cu), suppression (suppression_matrix.cu) and WBC cluster
+// (wbc_cluster.cu) kernels.
 //
 // A box is (x1, y1, x2, y2, z1, z2); where a kernel holds it in registers it
 // carries its volume as a seventh float. The IoU is the Pallas formula in
@@ -7,7 +8,10 @@
 //   inter = (max(dx, 0) * max(dy, 0)) * max(dz, 0)
 //   union = max((vol_row + vol_col) - inter, 1e-12),  iou = inter / union
 // in IEEE float32; the build passes -fmad=false so that no product is fused
-// into an add, and every kernel gets the plain PyTorch version's bits.
+// into an add. Every max and min carries NaN, as torch.maximum,
+// torch.minimum and torch.clamp (and the Pallas kernels' jnp.maximum) do,
+// so that every kernel gets the plain PyTorch version's bits: a box with a
+// NaN coordinate has IoU NaN with every box, above no threshold.
 #pragma once
 
 #include <cstdint>
@@ -21,14 +25,38 @@ __device__ __forceinline__ float volume(const float* b) {
   return ((b[2] - b[0]) * (b[3] - b[1])) * (b[5] - b[4]);
 }
 
+// max and min that return NaN where either operand is NaN (fmaxf and fminf
+// return the other operand); otherwise as fmaxf and fminf, +0 above -0
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// the intersection of row box a and column box b: +0 where they do not
+// meet, NaN where a coordinate is NaN
+__device__ __forceinline__ float box_inter(const float* a, const float* b) {
+  const float ix = max_nan(min_nan(a[2], b[2]) - max_nan(a[0], b[0]), 0.0f);
+  const float iy = max_nan(min_nan(a[3], b[3]) - max_nan(a[1], b[1]), 0.0f);
+  const float iz = max_nan(min_nan(a[5], b[5]) - max_nan(a[4], b[4]), 0.0f);
+  return (ix * iy) * iz;
+}
+
+// the clamped union of a and b (volumes a[6], b[6]) with intersection inter
+__device__ __forceinline__ float box_union(const float* a, const float* b, float inter) {
+  return max_nan((a[6] + b[6]) - inter, 1e-12f);
+}
+
 // IoU of row box a and column box b, each 6 coordinates and the volume
 __device__ __forceinline__ float box_iou(const float* a, const float* b) {
-  const float ix = fmaxf(fminf(a[2], b[2]) - fmaxf(a[0], b[0]), 0.0f);
-  const float iy = fmaxf(fminf(a[3], b[3]) - fmaxf(a[1], b[1]), 0.0f);
-  const float iz = fmaxf(fminf(a[5], b[5]) - fmaxf(a[4], b[4]), 0.0f);
-  const float inter = (ix * iy) * iz;
-  const float uni = fmaxf((a[6] + b[6]) - inter, 1e-12f);
-  return inter / uni;
+  const float inter = box_inter(a, b);
+  return inter / box_union(a, b, inter);
 }
 
 __device__ __forceinline__ bool iou_above(const float* a, const float* b, float thr) {
@@ -38,10 +66,13 @@ __device__ __forceinline__ bool iou_above(const float* a, const float* b, float 
 // whether boxes a and b overlap along every axis (min - max > 0 on each,
 // which for floats with gradual underflow is min > max); where they do not,
 // box_iou(a, b) is 0 (or NaN for infinite coordinates), above no threshold
-// >= 0
+// >= 0. A NaN coordinate makes its comparison false: the boxes do not
+// overlap, and their IoU, NaN, is above no threshold either, as in the
+// plain version (NaN > thr is false)
 __device__ __forceinline__ bool boxes_overlap(const float* a, const float* b) {
-  return (fminf(a[2], b[2]) > fmaxf(a[0], b[0])) & (fminf(a[3], b[3]) > fmaxf(a[1], b[1])) &
-         (fminf(a[5], b[5]) > fmaxf(a[4], b[4]));
+  return (min_nan(a[2], b[2]) > max_nan(a[0], b[0])) &
+         (min_nan(a[3], b[3]) > max_nan(a[1], b[1])) &
+         (min_nan(a[5], b[5]) > max_nan(a[4], b[4]));
 }
 
 // ascending order of the key: score descending, then index ascending; -0

@@ -41,10 +41,12 @@
 // Rounding: the IoU is computed exactly as the Pallas kernel writes it, the
 // selected box first: inter = max(dx,0)*max(dy,0)*max(dz,0), union =
 // max((vol_k + vol) - inter, 1e-12), iou = inter/union, in IEEE float32 with
-// IEEE division; the build passes -fmad=false so that no product is fused
-// into an add. The selected indices are therefore identical to the plain
-// PyTorch version's. A NaN score makes the plain version's arg-max pick it
-// and find nothing alive at every step; the kernel then selects nothing too.
+// IEEE division, every max and min carrying NaN (box_geometry.cuh); the
+// build passes -fmad=false so that no product is fused into an add. The
+// selected indices are therefore identical to the plain PyTorch version's; a
+// box with a NaN coordinate suppresses nothing and is suppressed by nothing.
+// A NaN score makes the plain version's arg-max pick it and find nothing
+// alive at every step; the kernel then selects nothing too.
 #include <cuda_runtime.h>
 
 #include <cmath>

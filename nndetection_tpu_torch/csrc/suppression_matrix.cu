@@ -66,36 +66,17 @@ constexpr int kScanThreads = 512;    // keep-scan: the chain warp and 15 tail wa
 constexpr int kTailLoads = 16;       // loads a tail thread keeps in flight
 constexpr int kMaxDevices = 64;
 
-// max and min that return NaN where either operand is NaN, as
-// torch.maximum, torch.minimum and torch.clamp do (and the Pallas kernel's
-// jnp.maximum); fmaxf and fminf return the other operand
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float d;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
-
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float d;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
-
 // whether row box a suppresses column box b: box_iou of box_geometry.cuh
-// with NaN carried through (a box with a NaN coordinate suppresses nothing
-// and is suppressed by nothing, as in the plain version), above thr. Where
+// (a box with a NaN coordinate suppresses nothing and is suppressed by
+// nothing, as in the plain version) above thr. Where
 // the boxes do not meet, inter is 0 (or NaN) and the IoU 0 (or NaN), above
 // no thr >= 0: with skip_disjoint (thr >= 0) those pairs, most of a tile's,
 // skip the division
 __device__ __forceinline__ bool suppresses(const float* a, const float* b, float thr,
                                            bool skip_disjoint) {
-  const float ix = max_nan(min_nan(a[2], b[2]) - max_nan(a[0], b[0]), 0.0f);
-  const float iy = max_nan(min_nan(a[3], b[3]) - max_nan(a[1], b[1]), 0.0f);
-  const float iz = max_nan(min_nan(a[5], b[5]) - max_nan(a[4], b[4]), 0.0f);
-  const float inter = (ix * iy) * iz;
+  const float inter = box_inter(a, b);
   if (skip_disjoint && !(inter > 0.0f)) return false;
-  const float uni = max_nan((a[6] + b[6]) - inter, 1e-12f);
-  return inter / uni > thr;
+  return inter / box_union(a, b, inter) > thr;
 }
 
 // upper tile t as (row tile r, column tile c), t = c(c+1)/2 + r, r <= c

@@ -53,7 +53,9 @@
 // tests against the seeds so far are the one part that grows as N x seeds.
 //
 // The IoU is computed on chip, from the class's boxes, with the arithmetic
-// of iou_matrix.cu (box_iou of box_geometry.cuh, -fmad=false), not read
+// of iou_matrix.cu (box_iou of box_geometry.cuh, -fmad=false), every max of
+// the IoU and of the sums carrying NaN as the plain version's torch.maximum
+// and torch.clamp do (a box with a NaN coordinate joins no cluster), not read
 // from an N x N matrix: the walk needs the IoU of each candidate with the
 // seeds before it and the sums that of each member with its seed, a
 // fraction of the matrix at ~25 flops each, while the matrix costs 4 B per
@@ -315,11 +317,11 @@ wbc_cluster_kernel(const float* __restrict__ boxes,     // [N, 6]
         for (int d = 0; d < 6; ++d) sum[4 + d] += bj[d] * ms;
       }
       const float n_found = sum[0];
-      const float n_expected = sum[1] / fmaxf(n_found, 1.0f);
-      const float n_missing = fmaxf(0.0f, n_expected - n_found);
-      const float msw_mean = sum[2] / fmaxf(n_found, 1.0f);
+      const float n_expected = sum[1] / max_nan(n_found, 1.0f);
+      const float n_missing = max_nan(n_expected - n_found, 0.0f);
+      const float msw_mean = sum[2] / max_nan(n_found, 1.0f);
       const float denom = sum[2] + (n_missing * msw_mean) * missing_weight;
-      score = sum[3] / fmaxf(denom, 1e-12f);
+      score = sum[3] / max_nan(denom, 1e-12f);
       emit = score > score_thr;
     }
     const uint32_t votes = __ballot_sync(kAllLanes, emit);
@@ -332,7 +334,7 @@ wbc_cluster_kernel(const float* __restrict__ boxes,     // [N, 6]
       if (w < warp) row += cw;
     }
     if (emit) {
-      const float ms_sum = fmaxf(sum[3], 1e-12f);
+      const float ms_sum = max_nan(sum[3], 1e-12f);
 #pragma unroll
       for (int d = 0; d < 6; ++d) ob[static_cast<size_t>(row) * 6 + d] = sum[4 + d] / ms_sum;
       os[row] = score;

@@ -1,6 +1,9 @@
 """The consolidation kernels on the card against their plain versions, at
 ``chip_smoke.py``'s sizes: the IoU matrix (#6, ``csrc/iou_matrix.cu``)
-within ``TOL["iou_ulps"]`` float32 ulps, the suppression words (#8,
+within ``TOL["iou_ulps"]`` float32 ulps (0: the same bits) and NaN at the
+same positions, on clumped and dense boxes and on the named cases of
+``test_torch_iou_tile_walk.py`` (NaN, +-inf and signed-zero coordinates)
+at every ``rows_per_warp`` and each ``M % 4``, the suppression words (#8,
 ``csrc/suppression_matrix.cu``) and the greedy keep-scan identical (also
 on the named edge cases of ``test_torch_nms_scan_walk.py``, one launch
 each, and at 16384 boxes), the WBC
@@ -22,11 +25,12 @@ import chip_smoke
 from nndetection_tpu_torch.core.boxes.wbc import batched_wbc
 from nndetection_tpu_torch.ops import LAUNCHES
 from nndetection_tpu_torch.ops import wbc_cluster as owbc
-from nndetection_tpu_torch.ops.iou_matrix import iou_matrix, iou_matrix_plain
+from nndetection_tpu_torch.ops.iou_matrix import iou_matrix, iou_matrix_plain, plan_iou
 from nndetection_tpu_torch.ops.suppression import (
     nms_keep_scan, nms_keep_scan_plain, suppression_matrix, suppression_matrix_plain)
 from nndetection_tpu_torch.ops.wbc_cluster import wbc_cluster, wbc_cluster_plain
 # by module name: a machine with the card may have another package named `tests`
+from test_torch_iou_tile_walk import IOU_CASES, make_iou_case
 from test_torch_nms_scan_walk import SCAN_CASES, make_scan_case, ranked
 from test_torch_wbc_walk import CASES, make_case
 
@@ -43,18 +47,55 @@ def _boxes(device, n, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["clumped", "dense"])
 @pytest.mark.parametrize("n", chip_smoke.IOU_SIZES)
-def test_iou_matrix(cuda_device, n):
-    b = _boxes(cuda_device, n, n)
-    other = _boxes(cuda_device, n // 2 + 3, n + 1)
+def test_iou_matrix(cuda_device, n, kind):
+    make = chip_smoke.clumped_boxes if kind == "clumped" else chip_smoke.dense_boxes
+    b = torch.from_numpy(make(np.random.RandomState(n), n)).to(cuda_device)
+    other = torch.from_numpy(make(np.random.RandomState(n + 1), n // 2 + 3)).to(cuda_device)
     n0 = LAUNCHES["iou_matrix"]
     for b2 in (b, other):
         got, want = iou_matrix(b, b2), iou_matrix_plain(b, b2)
         assert got.shape == want.shape == (n, b2.shape[0])
-        ulps = int((got.view(torch.int32) - want.view(torch.int32)).abs().max())
-        assert ulps <= chip_smoke.TOL["iou_ulps"]
+        # raises where NaN positions differ or above TOL["iou_ulps"]
+        chip_smoke.iou_ulps(f"{n} {kind}", got, want)
+        del got, want
     torch.cuda.synchronize()
     assert LAUNCHES["iou_matrix"] == n0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(IOU_CASES))
+@pytest.mark.parametrize("rows_per_warp", [1, 4, 16])
+def test_iou_matrix_named_cases(cuda_device, name, rows_per_warp):
+    """Each named case both ways round and against itself, on a forced
+    grid: NaN at the same positions as the plain version's on the CPU
+    copies, the same bits everywhere else (the card's max gives +0 where
+    the CPU's may give -0: compared on the card, the plain version gives
+    the kernel's bits)."""
+    b1, b2 = make_iou_case(name)
+    for x, y in ((b1, b2), (b2, b1), (b1, b1)):
+        x, y = torch.from_numpy(x).to(cuda_device), torch.from_numpy(y).to(cuda_device)
+        plan = plan_iou(len(x), len(y), 132, rows_per_warp=rows_per_warp)
+        got, want = iou_matrix(x, y, plan), iou_matrix_plain(x, y)
+        torch.cuda.synchronize()
+        assert chip_smoke.same_bits(got, want)
+        assert not bool(torch.signbit(got[got == 0]).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 127, 128, 129, 130, 131, 258, 1001])
+@pytest.mark.parametrize("n", [1, 9, 130])
+def test_iou_matrix_store_paths(cuda_device, n, m):
+    """Partial edge tiles, one row or column, and each ``M % 4``: the
+    16-byte stores where ``M % 4 == 0``, single floats otherwise, at the
+    plan's grid and at R = 16."""
+    rng = np.random.RandomState(n * 10000 + m)
+    b1 = torch.from_numpy(chip_smoke.special_boxes(rng, n)).to(cuda_device)
+    b2 = torch.from_numpy(chip_smoke.clumped_boxes(rng, m, 40.0)).to(cuda_device)
+    want = iou_matrix_plain(b1, b2)
+    for plan in (None, plan_iou(n, m, 132, rows_per_warp=16)):
+        assert chip_smoke.same_bits(iou_matrix(b1, b2, plan), want)
 
 
 @pytest.mark.cuda
@@ -137,7 +178,10 @@ def check_wbc_on_the_card(device, arrays, classes, iou_thr, score_thr, missing_w
     torch.cuda.synchronize()
     assert LAUNCHES["wbc_cluster"] == n0 + 2
     for g, a, w in zip(got, again, want):
-        assert torch.equal(g, a) and torch.equal(g.cpu(), w)
+        if g.dtype == torch.float32:  # the same bits, NaN at the same positions
+            assert chip_smoke.same_bits(g, a) and chip_smoke.same_bits(g.cpu(), w)
+        else:
+            assert torch.equal(g, a) and torch.equal(g.cpu(), w)
     return want
 
 

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from nndetection_tpu.core.boxes.ops import box_iou
 from nndetection_tpu.ops.pallas_ops import iou_matrix_pallas
 from nndetection_tpu_torch.ops import LAUNCHES
@@ -72,14 +73,24 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,m", [(1000, 1000), (33, 70), (1, 1)])
-def test_cuda_kernel_bit_equal_to_plain(cuda_device, n, m):
+@pytest.mark.parametrize("n,m,kind", [(1000, 1000, "spread"), (33, 70, "spread"),
+                                      (1, 1, "spread"), (1000, 1001, "spread"),
+                                      (4097, 4093, "spread"), (1000, 1000, "dense"),
+                                      (4097, 4093, "dense")])
+def test_cuda_kernel_bit_equal_to_plain(cuda_device, n, m, kind):
+    """The kernel against its plain version on the card: NaN at the same
+    positions (none here) and the same bits everywhere, on spread boxes
+    (most pairs apart: the division skipped) and on one dense clump (every
+    pair meets), with 16-byte stores (``M % 4 == 0``) and without."""
     rng = np.random.RandomState(n + m)
-    b1 = torch.from_numpy(random_boxes(rng, n)).to(cuda_device)
-    b2 = torch.from_numpy(random_boxes(rng, m)).to(cuda_device)
+    make = random_boxes if kind == "spread" else chip_smoke.dense_boxes
+    b1 = torch.from_numpy(make(rng, n)).to(cuda_device)
+    b2 = torch.from_numpy(make(rng, m)).to(cuda_device)
     n0 = LAUNCHES["iou_matrix"]
     got = iou_matrix(b1, b2)
     want = iou_matrix_plain(b1, b2)
     torch.cuda.synchronize()
     assert LAUNCHES["iou_matrix"] == n0 + 1
-    assert torch.equal(got, want)
+    assert chip_smoke.same_bits(got, want)
+    if kind == "dense":
+        assert bool((want > 0).all())

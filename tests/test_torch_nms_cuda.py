@@ -113,6 +113,26 @@ def test_tied_duplicates_and_signed_zeros(cuda_device, scratch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("thr", [0.1, 0.5, -0.1])
+def test_nan_inf_and_signed_zero_coordinates(cuda_device, scratch, thr):
+    """``chip_smoke.special_boxes`` (a NaN coordinate in one box of ten,
+    +-inf in one of ten, flat boxes, signed zeros): a box with a NaN
+    coordinate suppresses nothing and is suppressed by nothing, in the
+    kernel as in the plain version."""
+    rng = np.random.RandomState(17)
+    boxes = torch.from_numpy(np.stack([chip_smoke.special_boxes(rng, 300) for _ in range(4)]))
+    scores = torch.from_numpy(rng.rand(4, 300).astype(np.float32))
+    scores[torch.from_numpy(rng.rand(4, 300) < 0.1)] = float("-inf")
+    boxes, scores = boxes.to(cuda_device), scores.to(cuda_device)
+    valid = _check(boxes, scores, thr, 300)
+    nan = torch.isnan(boxes).any(-1) & torch.isfinite(scores)
+    idx, _ = onms.nms_topk(boxes, scores, thr, 300)
+    kept = torch.zeros(nan.shape, dtype=torch.int32, device=cuda_device)
+    kept.scatter_add_(1, idx, valid.int())
+    assert bool(nan.any()) and bool((kept[nan] == 1).all())
+
+
+@pytest.mark.cuda
 def test_public_wrapper_matches_the_cpu(cuda_device):
     boxes, scores = _inputs(cuda_device, 4, 500, seed=5)
     idx, valid = onms.nms_topk(boxes, scores, 0.4, 600)

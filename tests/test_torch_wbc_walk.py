@@ -129,8 +129,10 @@ def model_wbc(boxes, scores, weights, n_exp, labels, valid, num_classes, iou_thr
 
 
 def make_case(seed, n, classes, clumps=6, ties=0, signed_zero=False, zero_volume=0.0,
-              invalid=0.0, nonfinite=0.0, foreign=0.0, one_cluster=False):
-    """Seeded boxes in clumps, and the degenerate inputs the tests draw."""
+              invalid=0.0, nonfinite=0.0, foreign=0.0, one_cluster=False, nan_boxes=0.0):
+    """Seeded boxes in clumps, and the degenerate inputs the tests draw;
+    ``nan_boxes``: that share of the boxes with a NaN coordinate, and of the
+    weights NaN, drawn last."""
     rng = np.random.RandomState(seed)
     ctr = rng.uniform(10, 90, (max(n // clumps, 1), 3))[rng.randint(0, max(n // clumps, 1), n)]
     ctr = ctr + rng.uniform(-2, 2, (n, 3))
@@ -154,6 +156,10 @@ def make_case(seed, n, classes, clumps=6, ties=0, signed_zero=False, zero_volume
     weights = (0.5 + rng.rand(n)).astype(F32)
     n_exp = rng.randint(1, 9, n).astype(F32)
     valid = rng.rand(n) >= invalid
+    if nan_boxes:
+        bad = np.nonzero(rng.rand(n) < nan_boxes)[0]
+        boxes[bad, rng.randint(0, 6, len(bad))] = np.nan
+        weights[rng.rand(n) < nan_boxes] = np.nan
     return boxes, scores, weights, n_exp, labels, valid
 
 
@@ -181,6 +187,11 @@ CASES = {
     "one_box": (dict(n=1), 1, 0.5, 0.0),
     "one_cluster": (dict(n=77, one_cluster=True), 1, 0.5, 0.0),
     "nothing_remains": (dict(n=20, invalid=1.0), 2, 0.5, 0.0),
+    # a box with a NaN coordinate joins no cluster (IoU NaN), and a seed of
+    # its own emits nothing above 0, a zero row above -inf; a NaN weight
+    # makes its cluster's score NaN, not emitted
+    "nan_coordinates": (dict(n=96, nan_boxes=0.2), 2, 0.3, 0.0),
+    "nan_coordinates_all_seeds_emitted": (dict(n=64, nan_boxes=0.3), 1, 0.3, float("-inf")),
 }
 
 
