@@ -12,6 +12,7 @@ from typing import Optional, Sequence
 import torch
 
 from nndetection_tpu_torch.core.boxes.ops import box_corners, boxes_from_corners, columns
+from nndetection_tpu_torch.utils import trace
 
 
 class BoxCoder:
@@ -49,7 +50,8 @@ class BoxCoder:
         ex_ctr = pmin + 0.5 * ex_size
         gt_size = rmax - rmin
         gt_ctr = rmin + 0.5 * gt_size
-        w = torch.tensor(self.weights, dtype=torch.float32, device=pmin.device)
+        with trace.span("sync.copy"):  # a copy from pageable memory, as in decode
+            w = torch.tensor(self.weights, dtype=torch.float32, device=pmin.device)
         d_ctr = w[: self.dim] * (gt_ctr - ex_ctr) / ex_size
         d_size = w[self.dim :] * torch.log(gt_size / ex_size)
         ctr_cols, size_cols = self._columns()
@@ -67,7 +69,10 @@ class BoxCoder:
         sizes = bmax - bmin
         ctrs = bmin + 0.5 * sizes
         ctr_cols, size_cols = self._columns()
-        w = torch.tensor(self.weights, dtype=torch.float32, device=codes.device)
+        # a copy from pageable memory: on the card the host waits here for
+        # the work queued before it
+        with trace.span("sync.copy"):
+            w = torch.tensor(self.weights, dtype=torch.float32, device=codes.device)
         d_ctr = columns(codes, ctr_cols) / w[: self.dim]
         d_size = (columns(codes, size_cols) / w[self.dim :]).clamp(max=self.bbox_xform_clip)
         pred_ctr = d_ctr * sizes + ctrs

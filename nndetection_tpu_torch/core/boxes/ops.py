@@ -17,6 +17,8 @@ from typing import Sequence, Tuple
 
 import torch
 
+from nndetection_tpu_torch.utils import trace
+
 # corner index layout for the interleaved format
 _MIN_IDX = {4: (0, 1), 6: (0, 1, 4)}
 _MAX_IDX = {4: (2, 3), 6: (2, 3, 5)}
@@ -168,7 +170,8 @@ def clip_boxes_to_image(boxes: torch.Tensor, image_shape: Sequence[int]) -> torc
     dim = box_dim(boxes)
     assert len(image_shape) == dim, f"need {dim} sizes, got {image_shape}"
     mins, maxs = box_corners(boxes)
-    bounds = torch.as_tensor(image_shape, dtype=boxes.dtype, device=boxes.device)
+    with trace.span("sync.copy"):  # a copy from pageable memory, as in BoxCoder.decode
+        bounds = torch.as_tensor(image_shape, dtype=boxes.dtype, device=boxes.device)
     zero = torch.zeros((), dtype=boxes.dtype, device=boxes.device)
     mins = torch.minimum(torch.maximum(mins, zero), bounds)
     maxs = torch.minimum(torch.maximum(maxs, zero), bounds)

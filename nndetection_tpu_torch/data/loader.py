@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from nndetection_tpu_torch import resolve_device
+from nndetection_tpu_torch.utils import trace
 from nndetection_tpu_torch.utils.io import load_pickle
 from nndetection_tpu_torch.utils.registry import DATALOADER_REGISTRY
 
@@ -276,6 +277,10 @@ class DevicePatchPool(PatchLoader):
     of the epoch is swapped in before it ends. :meth:`sampling_report` says
     what coverage and skew that gave.
 
+    Under a profiler (:mod:`nndetection_tpu_torch.utils.trace`) each cut
+    records a ``pool.cut`` span, each swap ``pool.swap`` and each staged
+    read ``pool.stage_read``.
+
     A batch is a new tensor, never a view of the pool: a later swap writes
     the pool in place, on the same stream as the cuts, and must not change a
     batch that waits in a prefetch queue. ``device`` is the card unless the
@@ -435,7 +440,8 @@ class DevicePatchPool(PatchLoader):
             origins.append(self._fg_origin(rec) if use_fg else self._bg_origin(rec))
             case_idx.append(k)
             tables.append(self._class_table(rec))
-        data, seg = self.gather(case_idx, np.stack(origins))
+        with trace.span("pool.cut"):
+            data, seg = self.gather(case_idx, np.stack(origins))
         return {"images": data, "seg_instances": seg,
                 "instance_classes": torch.from_numpy(np.stack(tables))}
 
@@ -457,7 +463,8 @@ class DevicePatchPool(PatchLoader):
         # evict the most visited resident: new arrivals (fewer visits) stay
         slot = max(range(len(self._pool_slots)),
                    key=lambda s: self._visits[self._pool_slots[s].case_id])
-        self._put(slot, data, seg)
+        with trace.span("pool.swap"):
+            self._put(slot, data, seg)
         self._pool_slots[slot] = rec
         self._ever_resident.add(rec.case_id)
 
@@ -480,7 +487,8 @@ class DevicePatchPool(PatchLoader):
             for rec in plan:
                 if stop.is_set():
                     return
-                d, s = self._case_arrays(rec)
+                with trace.span("pool.stage_read"):
+                    d, s = self._case_arrays(rec)
                 while not stop.is_set():
                     try:
                         q.put((rec, d, s), timeout=0.5)
@@ -529,7 +537,8 @@ class DevicePatchPool(PatchLoader):
 class PrefetchIterator:
     """Background-thread prefetch of host batches (double buffering the
     memmap reads against device compute). A worker's error is raised by
-    the ``next`` that reaches it."""
+    the ``next`` that reaches it. Under a profiler the consumer's wait
+    for each item is a ``train.batch_wait`` span."""
 
     def __init__(self, it: Iterator, depth: int = 2):
         self.q: queue_mod.Queue = queue_mod.Queue(maxsize=depth)
@@ -552,7 +561,8 @@ class PrefetchIterator:
         return self
 
     def __next__(self):
-        item = self.q.get()
+        with trace.span("train.batch_wait"):
+            item = self.q.get()
         if item is self._sentinel:
             if self._err is not None:
                 raise self._err

@@ -19,6 +19,12 @@ its own; in NumPy only without a C++ compiler.
 
 :class:`SegmentationEnsembler` stitches the tiles' softmax maps on its
 device.
+
+Under a profiler, consolidation records the spans ``ensemble.consolidate``
+(each ``get_case_result``), ``ensemble.model_nms`` (each stream's
+model-level post-processing that is not memoised) and ``ensemble.cluster``
+(the whole-case WBC or NMS with its copy back)
+(:mod:`nndetection_tpu_torch.utils.trace`).
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from nndetection_tpu_torch.core.boxes.ops_np import (
 )
 from nndetection_tpu_torch.core.boxes.wbc import batched_wbc, batched_wbc_np
 from nndetection_tpu_torch.data.patching import tile_weight_map
+from nndetection_tpu_torch.utils import trace
 from nndetection_tpu_torch.utils.io import load_pickle, save_pickle
 
 Device = Union[torch.device, str, None]
@@ -282,24 +289,26 @@ class BoxEnsemblerSelective:
         hit = self._model_post_cache.get(key)
         if hit is not None:
             return hit
-        boxes, probs, labels, weights = out = self.model_candidates(name)
-        if len(boxes):
-            nms_fn = MODEL_NMS_FNS[p["model_nms_fn"]]
-            keep_idx = nms_fn(boxes, probs, labels, weights, p["model_iou"])
-            keep_idx = keep_idx[: p["model_detections_per_image"]]
-            out = (boxes[keep_idx], probs[keep_idx], labels[keep_idx], weights[keep_idx])
+        with trace.span("ensemble.model_nms"):
+            boxes, probs, labels, weights = out = self.model_candidates(name)
+            if len(boxes):
+                nms_fn = MODEL_NMS_FNS[p["model_nms_fn"]]
+                keep_idx = nms_fn(boxes, probs, labels, weights, p["model_iou"])
+                keep_idx = keep_idx[: p["model_detections_per_image"]]
+                out = (boxes[keep_idx], probs[keep_idx], labels[keep_idx], weights[keep_idx])
         self._model_post_cache[key] = out
         return out
 
     def _finish(self, boxes, probs, labels, weights, n_exp, fn) -> Dict[str, np.ndarray]:
         p = self.parameters
-        b, s, l = fn(
-            boxes, probs, labels, weights,
-            iou_thresh=p["ensemble_iou"],
-            n_exp_preds=n_exp,
-            score_thresh=p["ensemble_score_thresh"],
-            device=self.device,
-        )
+        with trace.span("ensemble.cluster"):
+            b, s, l = fn(
+                boxes, probs, labels, weights,
+                iou_thresh=p["ensemble_iou"],
+                n_exp_preds=n_exp,
+                score_thresh=p["ensemble_score_thresh"],
+                device=self.device,
+            )
         order = np.argsort(-s, kind="stable")
         return {
             "pred_boxes": b[order],
@@ -309,6 +318,10 @@ class BoxEnsemblerSelective:
 
     def get_case_result(self) -> Dict[str, np.ndarray]:
         """Consolidate all models -> final case detections."""
+        with trace.span("ensemble.consolidate"):
+            return self._consolidate()
+
+    def _consolidate(self) -> Dict[str, np.ndarray]:
         p = self.parameters
         per_model = [self.process_model(name) for name in self.model_results]
         if not per_model:
@@ -421,7 +434,7 @@ class BoxEnsemblerWBC(BoxEnsemblerSelective):
             self.overlap_map.add_tile(tile_origin, tile_size)
         super().process_tile(boxes, scores, labels, tile_origin, tile_size)
 
-    def get_case_result(self) -> Dict[str, np.ndarray]:
+    def _consolidate(self) -> Dict[str, np.ndarray]:
         p = self.parameters
         num_streams = max(len(self.model_results), 1)
         streams = [self._concat(name) for name, res in self.model_results.items() if res["boxes"]]

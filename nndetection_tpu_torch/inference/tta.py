@@ -11,6 +11,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from nndetection_tpu_torch.utils import trace
+
 _LO_IDX = {0: 0, 1: 1, 2: 4}
 _HI_IDX = {0: 2, 1: 3, 2: 5}
 
@@ -53,6 +55,10 @@ def invert_boxes(boxes: torch.Tensor, flips: Sequence[int], patch_size: Sequence
         perm[lo], perm[hi] = hi, lo
         sign[lo] = sign[hi] = -1.0
         offset[lo] = offset[hi] = float(patch_size[a])
-    sign_t = torch.tensor(sign, dtype=boxes.dtype, device=boxes.device)
-    offset_t = torch.tensor(offset, dtype=boxes.dtype, device=boxes.device)
-    return boxes[..., perm] * sign_t + offset_t
+    # three copies from pageable memory (the list index among them): on the
+    # card the host waits here for the work queued before them
+    with trace.span("sync.copy"):
+        sign_t = torch.tensor(sign, dtype=boxes.dtype, device=boxes.device)
+        offset_t = torch.tensor(offset, dtype=boxes.dtype, device=boxes.device)
+        permuted = boxes[..., perm]
+    return permuted * sign_t + offset_t

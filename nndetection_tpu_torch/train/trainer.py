@@ -42,6 +42,13 @@ z-slab of the batch under
 :func:`~nndetection_tpu_torch.parallel.spatial.spatial_partitioning`, kept
 open over the backward, which recomputes the forward under ``cfg.remat``.
 
+Under a profiler each step records the spans of
+:mod:`nndetection_tpu_torch.utils.trace`: ``train.to_device`` and the root
+``train.step`` with ``train.prepare``, ``train.forward`` (forward and loss),
+``train.backward`` and ``train.update``, which holds ``train.sync``, the
+host's wait for the gradient norm; the counter ``train.patches`` counts the
+rows stepped.
+
 Batches are prepared (``images``, ``gt_boxes``, ``gt_classes``,
 ``gt_mask``, ``seg``) or raw, as the host loaders make them (``images``,
 ``seg_instances``, ``instance_classes``). With an ``augment_cfg`` a raw
@@ -78,6 +85,7 @@ from nndetection_tpu_torch.parallel import distributed
 from nndetection_tpu_torch.parallel.mesh import axis_size, make_mesh
 from nndetection_tpu_torch.parallel.spatial import spatial_partitioning
 from nndetection_tpu_torch.train.lr import Schedule, swa_schedule
+from nndetection_tpu_torch.utils import trace
 
 # bump when the checkpoint payload gains or renames fields
 CKPT_SCHEMA_VERSION = 1
@@ -314,10 +322,13 @@ class Trainer:
 
     def _apply_update(self, state: TrainState) -> bool:
         """Clip, decay and SGD, unless the gradient is not finite; True if
-        the update was applied. Reads the gradient norm on the host: the
-        step's one synchronisation."""
+        the update was applied. Reads the gradient norm on the host, where
+        the host waits for the backward (the loss's ``BoxCoder.decode``
+        waits for the forward as well)."""
         grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads))).item()
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        with trace.span("train.sync"):
+            norm = norm.item()
         finite = math.isfinite(norm)
         state.notfinite_count = 0 if finite else state.notfinite_count + 1
         if self.tcfg.skip_nonfinite_updates and not (
@@ -341,11 +352,16 @@ class Trainer:
         augmentation draws from ``generator`` before the loss's sampler."""
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
+        trace.count("train.patches", batch["images"].shape[0])
         with self._partitioned():
-            batch = self._prepare(batch, generator, train=True)
-            losses = self._losses(state.net, batch, generator)
-            losses["total"].backward()
-        self._apply_update(state)
+            with trace.span("train.prepare"):
+                batch = self._prepare(batch, generator, train=True)
+            with trace.span("train.forward"):
+                losses = self._losses(state.net, batch, generator)
+            with trace.span("train.backward"):
+                losses["total"].backward()
+        with trace.span("train.update"):
+            self._apply_update(state)
         state.step += 1
         return self._mean_over_ranks({k: v.detach() for k, v in losses.items()})
 
@@ -359,7 +375,11 @@ class Trainer:
         metrics: Dict[str, List[torch.Tensor]] = {}
         t0 = time.perf_counter()
         for batch in batches:
-            for k, v in self.train_step(state, self._to_device(batch), generator).items():
+            with trace.span("train.to_device"):
+                batch = self._to_device(batch)
+            with trace.span("train.step"):
+                losses = self.train_step(state, batch, generator)
+            for k, v in losses.items():
                 metrics.setdefault(k, []).append(v)
         host = {k: torch.stack(v).float().cpu().numpy() for k, v in metrics.items()}
         out = {f"train_{k}": float(v[np.isfinite(v)].mean()) if np.isfinite(v).any() else math.nan

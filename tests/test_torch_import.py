@@ -127,6 +127,7 @@ SLICE_MODULES = [
     "nndetection_tpu_torch.utils.config",
     "nndetection_tpu_torch.utils.io",
     "nndetection_tpu_torch.utils.registry",
+    "nndetection_tpu_torch.utils.trace",
     "nndetection_tpu_torch.utils.tracking",
 ]
 
