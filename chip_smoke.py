@@ -1796,20 +1796,29 @@ def paired_max_err(label, got, want, rtol, atol) -> float:
     return float(diff[np.arange(len(a)), nearest].max()) if len(a) else 0.0
 
 
-def model_nms_times(ens):
-    """The model-level NMS over every stream's candidates, ranked by score x
-    weight as the weighted NMS ranks them: seconds through the host library
-    (``batched_nms_np``) and through the NumPy loop (``nms_np_plain`` on the
-    same class-offset boxes), which must keep the same boxes."""
+def model_nms_times(ens, device):
+    """The model-level NMS over every stream's candidates, ranked as the
+    ensembler's ``model_nms_fn`` ranks them: seconds through the host library
+    (``batched_nms_np``, one call a stream), through the NumPy loop
+    (``nms_np_plain`` on the same class-offset boxes), which must keep the
+    same boxes, and through ``batched_model_nms_device`` on ``device`` (one
+    launch of #7 for every stream, synchronised), which must keep the host
+    library's first ``model_detections_per_image``."""
     from nndetection_tpu_torch.core.boxes.ops_np import batched_nms_np, nms_np_plain
+    from nndetection_tpu_torch.inference.ensembler import MODEL_NMS_KEYS, batched_model_nms_device
 
-    thr = ens.parameters["model_iou"]
+    p = ens.parameters
+    thr, max_out = p["model_iou"], p["model_detections_per_image"]
+    rank = MODEL_NMS_KEYS[p["model_nms_fn"]]
     n_boxes, t_native, t_plain = 0, 0.0, 0.0
+    streams, keeps = [], []
     for name in ens.model_results:
         boxes, probs, labels, weights = ens.model_candidates(name)
+        ranked = rank(probs, weights)
+        streams.append((boxes, ranked, labels))
         if not len(boxes):
+            keeps.append(np.zeros((0,), np.int64))
             continue
-        ranked = probs * weights
         t0 = time.perf_counter()
         keep = batched_nms_np(boxes, ranked, labels, thr)
         t1 = time.perf_counter()
@@ -1822,10 +1831,22 @@ def model_nms_times(ens):
         if not np.array_equal(keep, want):
             raise AssertionError(f"model-level NMS of stream {name}: the host library keeps "
                                  f"{len(keep)} boxes, the NumPy loop {len(want)}")
+        keeps.append(keep[:max_out])
         n_boxes += len(boxes)
         t_native += t1 - t0
         t_plain += t2 - t1
-    return n_boxes, t_native, t_plain
+    card_s = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = batched_model_nms_device(streams, thr, max_out, device)
+        card_s.append(time.perf_counter() - t0)
+        for name, g, w in zip(ens.model_results, got, keeps):
+            if not np.array_equal(g, w):
+                raise AssertionError(f"model-level NMS of stream {name}: the card keeps "
+                                     f"{len(g)} boxes, the host library's first {max_out} "
+                                     f"{len(w)}, or others")
+    return n_boxes, t_native, t_plain, float(np.median(card_s))
 
 
 def phase_consolidate(device, shape=(96, 256, 256), patch=(96, 128, 128), tta=True,
@@ -1833,8 +1854,9 @@ def phase_consolidate(device, shape=(96, 256, 256), patch=(96, 128, 128), tta=Tr
     """The 8-flip case through ``predict_case`` with each ensembler (first
     call, then a warm one, timed), its WBC on the card; then the same
     ensembler state consolidated on the card, with the device formulation on
-    the CPU and on the host (the host library, float64). The model-level NMS
-    runs in the host library; it is timed again beside the NumPy loop on the
+    the CPU and on the host (the host library, float64). On the card the
+    model-level NMS of every stream is one launch of #7, elsewhere the host
+    library's; it is timed again on both, beside the NumPy loop, on the
     same candidates. Returns the launches of the warm calls and the
     ensemblers."""
     from nndetection_tpu_torch.inference.predictor import ModelBundle, Predictor
@@ -1881,10 +1903,12 @@ def phase_consolidate(device, shape=(96, 256, 256), patch=(96, 128, 128), tta=Tr
             f"host (host library, float64) {t_host:.4f} s ({len(host['pred_scores'])} "
             "detections)")
         if name == "BoxEnsemblerSelective":
-            n_boxes, t_native, t_plain = model_nms_times(ens)
+            n_boxes, t_native, t_plain, t_dev = model_nms_times(ens, device)
             log(f"[consolidate] {name}: model-level NMS over {len(ens.model_results)} streams, "
                 f"{n_boxes} candidates: host library {t_native:.4f} s, NumPy loop "
-                f"(nms_np_plain) {t_plain:.4f} s, the same keep lists")
+                f"(nms_np_plain) {t_plain:.4f} s, the same keep lists; batched on the card "
+                f"{t_dev:.4f} s (median of 5), the host library's first "
+                f"{ens.parameters['model_detections_per_image']}")
     missing = [k for k in CONSOLIDATE_KERNELS if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"consolidate: kernels never launched on the main path: {missing}")

@@ -12,18 +12,23 @@ The whole-case WBC runs on the ensembler's device: with ``device`` on CUDA,
 :func:`batched_wbc_device` clusters there through the kernels of
 :mod:`nndetection_tpu_torch.core.boxes.wbc` (float32). ``device=None`` keeps
 it on the host (float64), as the JAX package does off the TPU. The
-model-level NMS is the host float64 ``batched_nms_np`` everywhere, as in the
-JAX package. On the host, both loops run in the port's native library
-(:mod:`nndetection_tpu_torch.ops.native`), as the JAX package runs them in
-its own; in NumPy only without a C++ compiler.
+model-level NMS follows the same rule: on CUDA, every stream whose
+post-processing is not memoised goes through one launch of the truncated
+NMS kernel (:func:`batched_model_nms_device`, float32 IoU, the same ranking
+key and tie order); elsewhere each stream runs the host float64
+``batched_nms_np``, as in the JAX package. On the host, both loops run in
+the port's native library (:mod:`nndetection_tpu_torch.ops.native`), as the
+JAX package runs them in its own; in NumPy only without a C++ compiler.
 
 :class:`SegmentationEnsembler` stitches the tiles' softmax maps on its
 device.
 
 Under a profiler, consolidation records the spans ``ensemble.consolidate``
-(each ``get_case_result``), ``ensemble.model_nms`` (each stream's
-model-level post-processing that is not memoised) and ``ensemble.cluster``
-(the whole-case WBC or NMS with its copy back)
+(each ``get_case_result``), ``ensemble.model_nms`` (the model-level
+post-processing that is not memoised: each stream's on the host, all of a
+consolidation's in one span on CUDA) and ``ensemble.cluster`` (the
+whole-case WBC or NMS with its copy back), and the counter
+``ensemble.streams_on_card`` (the streams of the batched launches)
 (:mod:`nndetection_tpu_torch.utils.trace`).
 """
 from __future__ import annotations
@@ -41,6 +46,7 @@ from nndetection_tpu_torch.core.boxes.ops_np import (
     box_size_np,
     clip_boxes_to_image_np,
 )
+from nndetection_tpu_torch.core.boxes.nms import batched_nms_topk
 from nndetection_tpu_torch.core.boxes.wbc import batched_wbc, batched_wbc_np
 from nndetection_tpu_torch.data.patching import tile_weight_map
 from nndetection_tpu_torch.utils import trace
@@ -61,6 +67,38 @@ def batched_nms_model(boxes, scores, labels, weights, iou_thresh):
     return batched_nms_np(boxes, scores, labels, iou_thresh)
 
 
+def batched_model_nms_device(
+    streams: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]],
+    iou_thresh: float,
+    max_out: int,
+    device: Device = None,
+) -> List[np.ndarray]:
+    """The model-level NMS of several streams in one launch of
+    :func:`batched_nms_topk` on ``device``. ``streams``: each stream's
+    ``(boxes [n, 2*dim], ranking key [n], labels [n])``; padded to the
+    longest into one array, copied to the device once, and the kept
+    indices copied back once. Returns each stream's kept indices, best
+    first, at most ``max_out``: ``batched_nms_np(...)[:max_out]`` with the
+    IoU in float32 instead of float64."""
+    n = max((len(b) for b, _, _ in streams), default=0)
+    if n == 0:
+        return [np.zeros((0,), np.int64) for _ in streams]
+    width = streams[0][0].shape[1]
+    # boxes, key, label, valid along the last axis
+    packed = np.zeros((len(streams), n, width + 3), np.float32)
+    for row, (boxes, key, labels) in zip(packed, streams):
+        k = len(boxes)
+        row[:k, :width] = boxes
+        row[:k, width] = key
+        row[:k, width + 1] = labels
+        row[:k, width + 2] = 1.0
+    t = torch.from_numpy(packed).to(torch.device("cpu" if device is None else device))
+    idx, kept = batched_nms_topk(t[..., :width], t[..., width], t[..., width + 1].long(),
+                                 t[..., width + 2] > 0, iou_thresh, max_out)
+    rows = torch.where(kept, idx, -1).cpu().numpy()
+    return [row[row >= 0] for row in rows]
+
+
 # Where the whole-case WBC runs: "auto" -> on the ensembler's device when it
 # is CUDA, on the host otherwise (the JAX package's "auto": the TPU only);
 # True -> the device formulation on the ensembler's device (the kernels'
@@ -72,6 +110,11 @@ def _use_device_wbc(device: Device) -> bool:
     if DEVICE_WBC == "auto":
         return device is not None and torch.device(device).type == "cuda"
     return bool(DEVICE_WBC)
+
+
+def _use_device_model_nms(device: Device) -> bool:
+    """The model-level NMS runs on the device on CUDA, on the host otherwise."""
+    return device is not None and torch.device(device).type == "cuda"
 
 
 def batched_wbc_device(
@@ -120,6 +163,11 @@ def batched_nms_ensemble(boxes, scores, labels, weights, iou_thresh, n_exp_preds
 MODEL_NMS_FNS = {
     "weighted_nms": batched_weighted_nms_model,
     "nms": batched_nms_model,
+}
+# the ranking key of each, for the batched launch on the device
+MODEL_NMS_KEYS = {
+    "weighted_nms": lambda probs, weights: probs * weights,
+    "nms": lambda probs, weights: probs,
 }
 ENSEMBLE_FNS = {
     "wbc": batched_wbc_ensemble,
@@ -283,9 +331,12 @@ class BoxEnsemblerSelective:
         "model_detections_per_image",
     )
 
+    def _model_key(self, name: Hashable) -> Tuple:
+        return (name,) + tuple(self.parameters[k] for k in self._MODEL_PARAM_KEYS)
+
     def process_model(self, name: Hashable) -> Tuple[np.ndarray, ...]:
         p = self.parameters
-        key = (name,) + tuple(p[k] for k in self._MODEL_PARAM_KEYS)
+        key = self._model_key(name)
         hit = self._model_post_cache.get(key)
         if hit is not None:
             return hit
@@ -298,6 +349,25 @@ class BoxEnsemblerSelective:
                 out = (boxes[keep_idx], probs[keep_idx], labels[keep_idx], weights[keep_idx])
         self._model_post_cache[key] = out
         return out
+
+    def process_models_on_device(self) -> None:
+        """:meth:`process_model` of every stream not memoised, their NMS in
+        one batched launch on the ensembler's device; fills the memo."""
+        p = self.parameters
+        todo = [(name, self._model_key(name)) for name in self.model_results]
+        todo = [(name, key) for name, key in todo if key not in self._model_post_cache]
+        if not todo:
+            return
+        with trace.span("ensemble.model_nms"):
+            rank = MODEL_NMS_KEYS[p["model_nms_fn"]]
+            cands = [self.model_candidates(name) for name, _ in todo]
+            kept = batched_model_nms_device(
+                [(b, rank(s, w), l) for b, s, l, w in cands], p["model_iou"],
+                p["model_detections_per_image"], self.device)
+            for (_, key), cand, keep_idx in zip(todo, cands, kept):
+                self._model_post_cache[key] = (
+                    tuple(a[keep_idx] for a in cand) if len(cand[0]) else cand)
+            trace.count("ensemble.streams_on_card", len(todo))
 
     def _finish(self, boxes, probs, labels, weights, n_exp, fn) -> Dict[str, np.ndarray]:
         p = self.parameters
@@ -323,6 +393,8 @@ class BoxEnsemblerSelective:
 
     def _consolidate(self) -> Dict[str, np.ndarray]:
         p = self.parameters
+        if _use_device_model_nms(self.device):
+            self.process_models_on_device()
         per_model = [self.process_model(name) for name in self.model_results]
         if not per_model:
             return _empty_result(len(self.case_shape))
