@@ -43,6 +43,7 @@ from nndetection_tpu_torch.models.heads import (
     Segmenter,
 )
 from nndetection_tpu_torch.parallel.spatial import gather_spatial, get_spatial_axis
+from nndetection_tpu_torch.utils import trace
 
 
 def _tuplify(v: Any) -> Any:
@@ -302,9 +303,10 @@ def train_step_loss(
     box_logits = predictions["box_logits"]
     box_deltas = predictions["box_deltas"]
     b, a, c = box_logits.shape
-    labels, matched_boxes = assign_targets(
-        cfg, anchors, anchors_per_level,
-        targets["gt_boxes"], targets["gt_classes"], targets["gt_mask"])
+    with trace.span("train.match"):
+        labels, matched_boxes = assign_targets(
+            cfg, anchors, anchors_per_level,
+            targets["gt_boxes"], targets["gt_classes"], targets["gt_mask"])
 
     if cfg.head_type == "no_sampler":
         # every non-ignore anchor enters the classification loss, every
@@ -323,7 +325,8 @@ def train_step_loss(
             batch_size_per_image=cfg.batch_size_per_image,
             positive_fraction=cfg.positive_fraction,
             min_neg=cfg.min_neg, pool_size=cfg.pool_size, batch_size=1)
-        pos_mask, neg_mask = sampler(generator, labels, fg_probs)
+        with trace.span("train.sample"):
+            pos_mask, neg_mask = sampler(generator, labels, fg_probs)
         sample_mask = pos_mask | neg_mask
     pos_mask, neg_mask, sample_mask = (m.reshape(-1) for m in (pos_mask, neg_mask, sample_mask))
     flat_labels = labels.reshape(-1)

@@ -353,6 +353,7 @@ class Trainer:
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         trace.count("train.patches", batch["images"].shape[0])
+        trace.count("train.anchors", batch["images"].shape[0] * self.anchors.shape[0])
         with self._partitioned():
             with trace.span("train.prepare"):
                 batch = self._prepare(batch, generator, train=True)

@@ -160,10 +160,12 @@ def test_train_spans_nest_under_the_step(trained):
         assert [sp.name for sp in sorted(children, key=lambda sp: sp.start_ns)] == [
             "train.prepare", "train.forward", "train.backward", "train.update"]
         assert all(inside(sp, step) for sp in children)
-        # the loss's decode copies the coder's weights to the device
+        # the loss matches the anchors, draws the hard negatives, then its
+        # decode copies the coder's weights to the device
         (forward,) = [sp for sp in children if sp.name == "train.forward"]
-        (copy,) = [sp for sp in spans if sp.parent == forward.id]
-        assert copy.name == "sync.copy" and inside(copy, forward)
+        inner = sorted((sp for sp in spans if sp.parent == forward.id), key=lambda sp: sp.start_ns)
+        assert [sp.name for sp in inner] == ["train.match", "train.sample", "sync.copy"]
+        assert all(inside(sp, forward) for sp in inner)
         (update,) = [sp for sp in children if sp.name == "train.update"]
         (sync,) = [sp for sp in spans if sp.parent == update.id]
         assert sync.name == "train.sync" and inside(sync, update)
@@ -172,7 +174,8 @@ def test_train_spans_nest_under_the_step(trained):
     # one wait per batch and the one that ends the epoch
     assert len(names["train.batch_wait"]) == STEPS + 1
     assert all(sp.thread == main and sp.parent is None for sp in names["train.batch_wait"])
-    assert counts == {"train.patches": STEPS * BATCH}
+    anchors = torch_cfg().anchors()[0].shape[0]
+    assert counts == {"train.patches": STEPS * BATCH, "train.anchors": STEPS * BATCH * anchors}
     assert len(names.get("pool.swap", [])) == pool._rotations_last_epoch
     assert len(names.get("pool.stage_read", [])) >= pool._rotations_last_epoch
 
